@@ -1,0 +1,32 @@
+"""gaussian_splat_tpu_torch — the PyTorch/CUDA port of gaussian_splat_tpu.
+
+Same module layout and names as the JAX package beside it, so a reader finds
+each counterpart; inside, PyTorch idiom: `nn.Module` parameters, plain
+functions on tensors, explicit devices, and a hand-written CUDA kernel
+(csrc/raster_fwd.cu) behind a `torch.autograd.Function` where the JAX package
+has a Pallas kernel.
+
+Ported so far: the frame-serving path — load/create a model, `render` (forward),
+`Viewer.render_frame`, `cli render`. The package imports torch and numpy only;
+it never imports jax or anything of gaussian_splat_tpu.
+
+Entry points run on the GPU unless the caller asks for the CPU: every public
+constructor that creates tensors takes `device=None`, meaning "cuda", and
+raises when no GPU is present rather than carrying on on the CPU.
+"""
+
+from gaussian_splat_tpu_torch.camera import Camera
+from gaussian_splat_tpu_torch.config import RenderConfig
+from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_tpu_torch.ops.render import calibrate_render_config, render
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Camera",
+    "RenderConfig",
+    "GaussianModel",
+    "render",
+    "calibrate_render_config",
+    "__version__",
+]

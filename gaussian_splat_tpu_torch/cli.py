@@ -1,0 +1,154 @@
+"""Command-line interface of the port.
+
+Subcommands:
+  render     — render a PLY scene to a PNG from an orbit pose
+  turntable  — render an orbit to PNG frames
+  info       — print scene statistics for a PLY
+
+Usage: python -m gaussian_splat_tpu_torch.cli <subcommand> [options]
+
+Everything runs on the GPU unless `--device cpu` is given. `view`, `train` and
+`validate` arrive with their slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from gaussian_splat_tpu_torch.config import BACKENDS
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default=None,
+                   help='torch device; default: the GPU (fails without one). '
+                        'Pass "cpu" to run on the CPU.')
+
+
+def _add_render_config_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--backend", default="auto", choices=list(BACKENDS))
+    p.add_argument("--tile-width", type=int, default=32)
+    p.add_argument("--tile-height", type=int, default=16)
+    p.add_argument("--sh-degree", type=int, default=3)
+    p.add_argument("--background", type=float, nargs=3, default=[0.0, 0.0, 0.0])
+    p.add_argument("--pairs-per-gaussian", type=float, default=4.0)
+    p.add_argument("--antialiased", action="store_true",
+                   help="antialiased mode (opacity compensation)")
+    p.add_argument("--no-sat-check", action="store_true",
+                   help="disable the kernel's early-saturation exit: exact "
+                        "tau=0 compositing")
+    _add_device_arg(p)
+
+
+def _render_config(args):
+    from gaussian_splat_tpu_torch.config import RenderConfig
+
+    return RenderConfig(
+        backend=args.backend,
+        tile_width=args.tile_width,
+        tile_height=args.tile_height,
+        sh_degree=args.sh_degree,
+        background=tuple(args.background),
+        pairs_per_gaussian=args.pairs_per_gaussian,
+        antialiased=args.antialiased,
+        sat_check=not args.no_sat_check,
+    )
+
+
+def _load_model(args):
+    from gaussian_splat_tpu_torch.io.ply import load_gaussians
+
+    return load_gaussians(args.ply, device=args.device)
+
+
+def cmd_render(args) -> int:
+    import torch
+    from PIL import Image
+
+    from gaussian_splat_tpu_torch.camera import orbit_camera
+    from gaussian_splat_tpu_torch.ops.render import render
+    from gaussian_splat_tpu_torch.viewer.viewer import to_uint8
+
+    model = _load_model(args)
+    cam = orbit_camera(
+        args.radius, args.azimuth, args.elevation,
+        width=args.width, height=args.height, device=model.device,
+    )
+    with torch.no_grad():
+        out = render(model, cam, _render_config(args))
+    Image.fromarray(to_uint8(out.image)).save(args.out)
+    print(f"rendered {model.num_gaussians} splats on {model.device} -> {args.out}")
+    return 0
+
+
+def cmd_turntable(args) -> int:
+    from gaussian_splat_tpu_torch.viewer.viewer import Viewer
+
+    model = _load_model(args)
+    viewer = Viewer(
+        model, _render_config(args), width=args.width, height=args.height,
+        show_overlay=False, device=model.device,
+    )
+    viewer.orbit_turntable(
+        n_frames=args.frames,
+        radius=args.radius,
+        elevation_deg=args.elevation,
+        out_dir=args.out_dir,
+    )
+    print(f"wrote {args.frames} frames to {args.out_dir}/")
+    return 0
+
+
+def cmd_info(args) -> int:
+    model = _load_model(args)
+    means = model.means.detach()
+    stats = {
+        "num_gaussians": model.num_gaussians,
+        "sh_degree": model.sh_degree,
+        "means_min": means.min(0).values.tolist(),
+        "means_max": means.max(0).values.tolist(),
+        "opacity_mean": float(model.opacities.detach().mean()),
+        "scale_mean": float(model.scales.detach().mean()),
+    }
+    print(json.dumps(stats, indent=2))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="gaussian_splat_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("render", help="render a PLY to a PNG")
+    p.add_argument("ply")
+    p.add_argument("--out", default="render.png")
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=720)
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--azimuth", type=float, default=0.0)
+    p.add_argument("--elevation", type=float, default=20.0)
+    _add_render_config_args(p)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("turntable", help="render an orbit to PNG frames")
+    p.add_argument("ply")
+    p.add_argument("--out-dir", default="turntable")
+    p.add_argument("--frames", type=int, default=60)
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=720)
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--elevation", type=float, default=20.0)
+    _add_render_config_args(p)
+    p.set_defaults(fn=cmd_turntable)
+
+    p = sub.add_parser("info", help="scene statistics")
+    p.add_argument("ply")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_info)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Render configuration: the port's own copy of gaussian_splat_tpu/config.py.
+
+Every semantic field and default of the JAX `RenderConfig` is kept (the parity
+tests compare them one by one). Dropped: the TPU-only knobs
+`tiles_per_program`, `dma_chunks`, `exact_vjp` and the 128-lane rule on
+`chunk_size`. `chunk_size` itself stays because `pair_budget` rounds to it, so
+budgets — and therefore overflow truncation — equal the reference's.
+Sharding fields and `TrainConfig` arrive with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+BACKENDS = ("auto", "cuda", "torch_tile", "reference")
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rasterization configuration (frozen, hashable).
+
+    Numeric-semantics constants are shared verbatim between the dense oracle,
+    the torch tile compositor and the CUDA kernel so they agree to
+    floating-point tolerance."""
+
+    # Tiling -----------------------------------------------------------------
+    tile_width: int = 32  # pixels per tile in x: one warp spans one tile row
+    tile_height: int = 16  # pixels per tile in y (32×16 = 512 threads a block)
+    chunk_size: int = 128  # rounding unit of the pair budget (kept so budgets
+    #   equal the reference's; the CUDA kernel has no alignment rule)
+
+    # Binning capacities -----------------------------------------------------
+    max_tiles_per_gaussian: int = 32  # cap on tile-rect area for the BIG tier;
+    #   rects are shrunk to fit, counted in clamped_rects
+    small_tiles_per_gaussian: int = 6  # tile-rect cap for the small tier
+    big_gaussian_fraction: int = 32  # N/fraction big-tier slots by default
+    big_tier_capacity: Optional[int] = None  # absolute override of the big
+    #   tier's capacity (slots); `tier_overflow` is the runtime sentinel
+    pairs_per_gaussian: float = 4.0  # pair budget = ceil(N * pairs_per_gaussian);
+    #   overflow beyond it drops whole farthest gaussians and is reported in
+    #   BinningResult.overflow
+
+    # Projection -------------------------------------------------------------
+    near_plane: float = 0.01
+    cov2d_dilation: float = 0.3  # low-pass diagonal lift on the 2D covariance
+    sigma_extent: float = 3.0  # billboard extent in σ; contributions beyond it
+    #   (σ > sigma_cutoff) are zeroed in EVERY backend
+    opacity_aware_extent: bool = True  # shrink extents to where α < alpha_skip
+    antialiased: bool = False  # scale opacity by √(det Σ / det(Σ+dilation·I))
+
+    # Compositing ------------------------------------------------------------
+    alpha_clamp: float = 0.999  # max per-splat alpha
+    alpha_skip: float = 1.0 / 255.0  # contributions below this are dropped
+    transmittance_eps: float = 1e-6  # early-exit threshold of the CUDA kernel;
+    #   semantics are defined with NO early-out, this only gates a skip whose
+    #   error is ≤ this value
+    sat_check: bool = True  # let a tile's block stop once every pixel has
+    #   T < transmittance_eps. False = exact semantics, whole segment walked.
+
+    # SH ---------------------------------------------------------------------
+    sh_degree: int = 3
+
+    # Background -------------------------------------------------------------
+    background: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+    # Backend ----------------------------------------------------------------
+    backend: str = "auto"  # "auto": CUDA tensors → "cuda" (the kernel), CPU
+    #   tensors → "torch_tile". "cuda" on CPU tensors raises; nothing falls
+    #   back from the kernel to the plain compositor.
+
+    @property
+    def sigma_cutoff(self) -> float:
+        """Falloff-argument cutoff: σ > 0.5·extent² ⇒ no contribution."""
+        return 0.5 * self.sigma_extent**2
+
+    @property
+    def tile_pixels(self) -> int:
+        return self.tile_width * self.tile_height
+
+    def tiles_x(self, width: int) -> int:
+        return -(-width // self.tile_width)
+
+    def tiles_y(self, height: int) -> int:
+        return -(-height // self.tile_height)
+
+    def num_tiles(self, width: int, height: int) -> int:
+        return self.tiles_x(width) * self.tiles_y(height)
+
+    def big_capacity(self, n_eff: int) -> int:
+        """Big-tier slot count for an n_eff-row binning pass (floor of 64;
+        `big_tier_capacity` overrides the fraction heuristic absolutely)."""
+        if self.big_tier_capacity is not None:
+            return min(n_eff, max(self.big_tier_capacity, 1))
+        return min(n_eff, max(n_eff // self.big_gaussian_fraction + 1, 64))
+
+    def pair_budget(self, n_gaussians: int) -> int:
+        """Pair-list capacity, rounded up to a chunk multiple: the exact worst
+        case for small scenes, the amortized `pairs_per_gaussian` budget (with
+        a floor) for large ones."""
+        m_big = self.big_capacity(n_gaussians)
+        worst = (
+            n_gaussians * self.small_tiles_per_gaussian
+            + m_big * self.max_tiles_per_gaussian
+        )
+        budget = min(worst, max(int(n_gaussians * self.pairs_per_gaussian), 4096))
+        c = self.chunk_size
+        return -(-budget // c) * c

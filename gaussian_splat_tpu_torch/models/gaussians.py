@@ -1,0 +1,119 @@
+"""GaussianModel — the trainable splat parameters as an `nn.Module`.
+
+Counterpart of gaussian_splat_tpu/models/gaussians.py. Parameters are stored
+RAW (log-scales, opacity logits, SH coefficients) and activated inside the
+forward pass. The level-of-detail and AABB filters of the JAX model arrive
+with the viewer's LoD slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from gaussian_splat_tpu_torch._device import DeviceLike, resolve_device
+from gaussian_splat_tpu_torch.ops import sh as sh_ops
+
+
+class GaussianModel(nn.Module):
+    """Five raw leaves, each an `nn.Parameter` leading with N:
+
+      means (N,3) world positions; quats (N,4) wxyz (normalized in forward);
+      log_scales (N,3), scale = exp; opacity_logits (N,), opacity = sigmoid;
+      sh (N,K,3) SH coefficients, K = (degree+1)², band-ordered.
+    """
+
+    LEAVES = ("means", "quats", "log_scales", "opacity_logits", "sh")
+
+    def __init__(self, means, quats, log_scales, opacity_logits, sh):
+        super().__init__()
+        self.means = nn.Parameter(means)
+        self.quats = nn.Parameter(quats)
+        self.log_scales = nn.Parameter(log_scales)
+        self.opacity_logits = nn.Parameter(opacity_logits)
+        self.sh = nn.Parameter(sh)
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def sh_degree(self) -> int:
+        return int(round(self.sh.shape[1] ** 0.5)) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
+
+    # -- activations --------------------------------------------------------
+    @property
+    def scales(self) -> torch.Tensor:
+        return torch.exp(self.log_scales)
+
+    @property
+    def opacities(self) -> torch.Tensor:
+        return torch.sigmoid(self.opacity_logits)
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def create(
+        cls, means, quats, log_scales, opacity_logits, sh,
+        device: DeviceLike = None,
+    ) -> "GaussianModel":
+        device = resolve_device(device)
+
+        def leaf(x):
+            return torch.as_tensor(x, dtype=torch.float32).detach().to(device).clone()
+
+        return cls(
+            leaf(means), leaf(quats), leaf(log_scales), leaf(opacity_logits),
+            leaf(sh),
+        )
+
+    @classmethod
+    def random(
+        cls,
+        generator: torch.Generator,
+        n: int,
+        sh_degree: int = 0,
+        extent: float = 1.0,
+        scale_range=(0.01, 0.1),
+        isotropic: bool = False,
+        device: DeviceLike = None,
+    ) -> "GaussianModel":
+        """Random scene generator for tests and benchmarks. Same distributions
+        as the JAX package's `GaussianModel.random`; the numbers differ, since
+        the two frameworks' generators do. The generator must live on the
+        device the scene is made on."""
+        device = resolve_device(device)
+        if generator.device.type != device.type:
+            raise ValueError(
+                f"generator is on {generator.device}, the scene on {device}: "
+                f"make it with torch.Generator(device={device.type!r})"
+            )
+
+        def uniform(shape, lo, hi):
+            u = torch.rand(shape, generator=generator, device=device)
+            return lo + (hi - lo) * u
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=device)
+
+        means = uniform((n, 3), -extent, extent)
+        log_lo, log_hi = math.log(scale_range[0]), math.log(scale_range[1])
+        if isotropic:
+            quats = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device).repeat(n, 1)
+            log_scales = uniform((n, 1), log_lo, log_hi).repeat(1, 3)
+        else:
+            quats = normal((n, 4))
+            quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+            log_scales = uniform((n, 3), log_lo, log_hi)
+        opacity_logits = uniform((n,), -1.0, 3.0)
+        K = sh_ops.num_sh_bases(sh_degree)
+        sh = torch.zeros((n, K, 3), device=device)
+        sh[:, 0, :] = sh_ops.rgb_to_sh_dc(uniform((n, 3), 0.1, 0.9))
+        if K > 1:
+            sh[:, 1:, :] = 0.1 * normal((n, K - 1, 3))
+        return cls(means, quats, log_scales, opacity_logits, sh)

@@ -1,0 +1,390 @@
+"""Tile binning: depth sort, gaussian→tile pair expansion, segmented offsets.
+
+Counterpart of gaussian_splat_tpu/ops/binning.py with the same decisions, so
+its integer outputs equal the reference's on the same projection inputs:
+
+  * Gaussians are depth-sorted FIRST (stable argsort over N, culled last).
+  * Two-tier tile rects: any splat whose K-capped rect area exceeds
+    `small_tiles_per_gaussian` is big-tier eligible; the big tier has a static
+    capacity, and eligible splats beyond it lose by area (ties to the lower
+    index) and are shrunk to the small cap, counted in `tier_overflow`.
+  * Oversized rects are shrunk isotropically around the mean's tile to fit
+    their cap (`clamped_rects`).
+  * The exact per-cell σ-bound test drops (gaussian, tile) cells whose
+    pixel-center box the {σ ≤ bound} ellipse misses, with a +1e-4 margin.
+  * Budget truncation drops WHOLE gaussians from the far end of the depth
+    order (`overflow`), which keeps per-rank pair counts — `rank_starts` —
+    exact.
+  * One sort of (tile, depth rank) keys yields per-tile front-to-back
+    segments.
+
+What differs from the reference, by design: the sort key is ONE int64
+`(tile << 32) | rank` sorted by `torch.sort` (no 32-bit packing limit and no
+two-key fallback), the rect columns are gathered directly rather than packed
+into a code word, and the pair list is exactly `pair_budget` long: the CUDA
+kernel needs no alignment padding. The sharded-path arguments (`max_active`,
+`tile_row0`, `total_tiles_y`) arrive with the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from gaussian_splat_tpu_torch.config import RenderConfig
+from gaussian_splat_tpu_torch.ops.falloff import sigma_bound
+from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
+
+
+class BinningResult(NamedTuple):
+    order: torch.Tensor  # (N,) int64 depth argsort: sorted_i -> original index
+    pair_gauss: torch.Tensor  # (B,) int32 index into the *depth-sorted* arrays
+    #   (0 on padding rows — mask with pair_tile)
+    pair_tile: torch.Tensor  # (B,) int32 tile id, == num_tiles on padding rows
+    tile_offsets: torch.Tensor  # (T,) int32 segment start per tile
+    tile_counts: torch.Tensor  # (T,) int32 pairs per tile
+    num_pairs: torch.Tensor  # () int32 valid pairs before budget truncation
+    overflow: torch.Tensor  # () int32 pairs dropped by the budget
+    clamped_rects: torch.Tensor  # () int32 gaussians whose tile rect was shrunk
+    #   by the per-gaussian K cap or the tier-capacity overflow
+    rank_starts: torch.Tensor  # (N+1,) int32 exclusive cumsum of per-rank pair
+    #   counts: pairs of depth-rank r number rank_starts[r+1]−rank_starts[r]
+    tier_overflow: torch.Tensor  # () int32 big-tier-ELIGIBLE gaussians denied a
+    #   big slot because the big-tier capacity overflowed
+
+
+class BinningStats(NamedTuple):
+    """Scalar telemetry extracted from a BinningResult (0-d tensors on the
+    binning's device: reading one is a device synchronisation)."""
+
+    num_pairs: torch.Tensor
+    overflow: torch.Tensor
+    clamped_rects: torch.Tensor
+    tier_overflow: torch.Tensor
+
+    @classmethod
+    def of(cls, b: BinningResult) -> "BinningStats":
+        return cls(b.num_pairs, b.overflow, b.clamped_rects, b.tier_overflow)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return _i32(torch.sum(mask))
+
+
+def _top_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest scores, ties to the LOWER index first — the
+    order `jax.lax.top_k` guarantees and `torch.topk` does not, and the one
+    that decides who loses a big-tier slot when the tier overflows."""
+    return torch.sort(score, descending=True, stable=True).indices[:k]
+
+
+def quantize_extent_up(x: torch.Tensor) -> torch.Tensor:
+    """Round a billboard extent UP to the 1/256-px grid, where mean − extent
+    is exact for coordinates < 4096, so every path floors the same rect.
+    Rounding UP only enlarges the exact ellipse AABB."""
+    return torch.ceil(x * 256.0) * (1.0 / 256.0)
+
+
+def _tile_index(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Clamp a float tile coordinate to [lo, hi], then convert: clamping first
+    keeps the conversion defined for the huge coordinates of culled splats."""
+    return _i32(torch.clamp(x, lo, hi))
+
+
+def tile_rects(
+    means2d: torch.Tensor,
+    radii: torch.Tensor,
+    valid: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    extents: Optional[torch.Tensor] = None,
+):
+    """Per-gaussian tile rectangle [tx0,tx1)×[ty0,ty1), capped to the
+    per-gaussian tile budget. Returns (tx0, ty0, rect_w, rect_h, clamped_count).
+
+    `extents` (N, 2), when given, is the exact per-axis ellipse AABB from
+    projection — strictly tighter than the circular `radii`."""
+    tw, th = config.tile_width, config.tile_height
+    tx_n = config.tiles_x(width)
+    ty_n = config.tiles_y(height)
+
+    if extents is not None:
+        rx = quantize_extent_up(extents[:, 0])
+        ry = quantize_extent_up(extents[:, 1])
+    else:
+        rx = ry = radii.to(torch.float32)
+    mx, my = means2d[:, 0], means2d[:, 1]
+
+    tx0 = _tile_index(torch.floor((mx - rx) / tw), 0, tx_n)
+    tx1 = _tile_index(torch.ceil((mx + rx) / tw), 0, tx_n)
+    ty0 = _tile_index(torch.floor((my - ry) / th), 0, ty_n)
+    ty1 = _tile_index(torch.ceil((my + ry) / th), 0, ty_n)
+
+    w = torch.where(valid, tx1 - tx0, 0)
+    h = torch.where(valid, ty1 - ty0, 0)
+
+    tx0, ty0, w, h, clamped = _shrink_to_cap(
+        tx0, ty0, w, h, config.max_tiles_per_gaussian, mx, my, tw, th, tx_n, ty_n
+    )
+    w = torch.where(valid, w, 0)
+    h = torch.where(valid, h, 0)
+    return tx0, ty0, w, h, _count(clamped & valid)
+
+
+def _shrink_to_cap(tx0, ty0, w, h, cap, mx, my, tw, th, tx_n, ty_n, apply=None):
+    """Shrink rects with area > cap isotropically around the mean's tile:
+    floor(w·s)·floor(h·s) ≤ w·h·(cap/area) = cap for s = sqrt(cap/area).
+    `apply` optionally restricts which gaussians are eligible for shrinking.
+    Returns (tx0, ty0, w, h, shrunk_mask)."""
+    area = w * h
+    needs = area > cap
+    if apply is not None:
+        needs = needs & apply
+    s = torch.sqrt(cap / torch.clamp_min(area, 1).to(torch.float32))
+    w_c = torch.clamp_min(_i32(w.to(torch.float32) * s), 1)
+    h_c = torch.clamp_min(_i32(h.to(torch.float32) * s), 1)
+    # Thin rects can violate the cap after the floor-and-bump above (a 64×1
+    # rect with cap 16: h_c floors to 0 → bumped to 1 while w_c=32). Re-clamp
+    # so w_c·h_c ≤ cap ALWAYS holds — rank_starts counts the full rect area.
+    w_c = torch.minimum(w_c, cap // torch.clamp_min(h_c, 1))
+    h_c = torch.minimum(h_c, cap // torch.clamp_min(w_c, 1))
+    w_c = torch.clamp_min(w_c, 1)
+    h_c = torch.clamp_min(h_c, 1)
+    cx = _tile_index(torch.floor(mx / tw), 0, tx_n - 1)
+    cy = _tile_index(torch.floor(my / th), 0, ty_n - 1)
+    tx0_c = torch.minimum(torch.clamp_min(cx - (w_c - 1) // 2, 0), tx_n - w_c)
+    ty0_c = torch.minimum(torch.clamp_min(cy - (h_c - 1) // 2, 0), ty_n - h_c)
+    return (
+        torch.where(needs, tx0_c, tx0),
+        torch.where(needs, ty0_c, ty0),
+        torch.where(needs, w_c, w),
+        torch.where(needs, h_c, h),
+        needs,
+    )
+
+
+def effective_rects(
+    means2d: torch.Tensor,
+    radii: torch.Tensor,
+    valid: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    extents: Optional[torch.Tensor] = None,
+):
+    """Two-tier per-gaussian rects as used by `bin_gaussians`, in ORIGINAL
+    index order.
+
+    Tier membership is a per-gaussian THRESHOLD (K-capped rect area >
+    `small_tiles_per_gaussian`); the big tier keeps a STATIC capacity
+    `config.big_capacity(N)`, and eligible splats beyond it lose
+    deterministically by area and are shrunk to the small cap, counted in
+    `tier_overflow` — zero in any sane configuration.
+    Returns (tx0, ty0, w, h, is_big, clamped, tier_overflow)."""
+    tw, th = config.tile_width, config.tile_height
+    tx_n = config.tiles_x(width)
+    ty_n = config.tiles_y(height)
+    n = means2d.shape[0]
+    mx, my = means2d[:, 0], means2d[:, 1]
+
+    tx0, ty0, w, h, clamped_big = tile_rects(
+        means2d, radii, valid, width, height, config, extents=extents
+    )
+    area = w * h  # 0 on invalid rows
+
+    m_big = config.big_capacity(n)
+    eligible = area > config.small_tiles_per_gaussian
+    big_idx = _top_indices(torch.where(eligible, area, 0), m_big)
+    sel = eligible[big_idx]  # capacity slots actually holding eligible splats
+    is_big = torch.zeros((n,), dtype=torch.bool, device=means2d.device)
+    is_big[big_idx] = sel
+    tier_overflow = _count(eligible) - _count(sel)
+
+    tx0, ty0, w, h, shrunk = _shrink_to_cap(
+        tx0, ty0, w, h, config.small_tiles_per_gaussian,
+        mx, my, tw, th, tx_n, ty_n, apply=~is_big,
+    )
+    clamped = clamped_big + _count(shrunk & valid)
+    return tx0, ty0, w, h, is_big, clamped, tier_overflow
+
+
+def _cell_sigma_min(tx, ty, mx, my, A2, B, C2, tw, th):
+    """Exact min of σ = A2·dx² + B·dx·dy + C2·dy² over a tile's pixel-center
+    box [tx·tw+0.5, tx·tw+tw−0.5] × [ty·th+0.5, ty·th+th−0.5].
+
+    The box-constrained minimum of a positive-definite quadratic is 0 if the
+    mean is inside, else it lies on the boundary: evaluate the 1-D clamped
+    minimizer on each of the four edges and take the min."""
+    x0 = tx.to(torch.float32) * tw + 0.5
+    y0 = ty.to(torch.float32) * th + 0.5
+    dx0 = x0 - mx
+    dx1 = dx0 + (tw - 1.0)
+    dy0 = y0 - my
+    dy1 = dy0 + (th - 1.0)
+    inside = (dx0 <= 0.0) & (0.0 <= dx1) & (dy0 <= 0.0) & (0.0 <= dy1)
+    inv2c = 1.0 / torch.clamp_min(2.0 * C2, 1e-12)
+    inv2a = 1.0 / torch.clamp_min(2.0 * A2, 1e-12)
+
+    def sig(dx, dy):
+        return (A2 * dx) * dx + (C2 * dy + B * dx) * dy
+
+    def edge_x(dx):  # fixed dx, minimize over dy
+        dy = torch.minimum(torch.maximum(-B * dx * inv2c, dy0), dy1)
+        return sig(dx, dy)
+
+    def edge_y(dy):  # fixed dy, minimize over dx
+        dx = torch.minimum(torch.maximum(-B * dy * inv2a, dx0), dx1)
+        return sig(dx, dy)
+
+    smin = torch.minimum(
+        torch.minimum(edge_x(dx0), edge_x(dx1)),
+        torch.minimum(edge_y(dy0), edge_y(dy1)),
+    )
+    return torch.where(inside, 0.0, smin)
+
+
+@torch.no_grad()
+def bin_gaussians(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    opacities: Optional[torch.Tensor] = None,
+) -> BinningResult:
+    """Full binning pass; integer outputs, no gradient.
+
+    `opacities` ((N,) original order) enables the EXACT per-cell σ-bound tile
+    test — a (gaussian, tile) pair whose support ellipse {σ ≤ bound} does not
+    reach the tile's pixel-center box is dropped at expansion time.
+    Output-identical (such pairs contribute α≡0 in every backend). Without it
+    every rect cell is kept."""
+    dev = proj.means2d.device
+    tx_n = config.tiles_x(width)
+    ty_n = config.tiles_y(height)
+    num_tiles = tx_n * ty_n
+    n = proj.means2d.shape[0]
+    K = config.max_tiles_per_gaussian
+    k_small = config.small_tiles_per_gaussian
+    m_big = config.big_capacity(n)
+    tw, th = config.tile_width, config.tile_height
+
+    # --- 1. depth sort (near → far); culled splats sort last ----------------
+    depth_key = torch.where(proj.valid, proj.depths, torch.inf)
+    order = torch.argsort(depth_key, stable=True)
+
+    # --- 2. two-tier tile rects (original order), gathered into depth order -
+    tx0_o, ty0_o, w_o, h_o, is_big_o, clamped, tier_ovf = effective_rects(
+        proj.means2d, proj.radii, proj.valid, width, height, config,
+        extents=proj.extents,
+    )
+    tx0, ty0, w, h = tx0_o[order], ty0_o[order], w_o[order], h_o[order]
+    is_big = is_big_o[order]
+    valid = proj.valid[order]
+    area = w * h
+
+    # rank-space index list of the big tier: ≤ m_big set bits first (lowest
+    # rank first), unused capacity slots filled with non-big rows and masked
+    big_idx = _top_indices(_i32(is_big), m_big)
+    big_used = is_big[big_idx]
+
+    ranks = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def cells(tx0e, ty0e, we, kk):
+        """(rows, kk) tile coordinates of each rect's kk first cells."""
+        kidx = torch.arange(kk, dtype=torch.int32, device=dev)[None, :]
+        w_safe = torch.clamp_min(we, 1)[:, None]
+        return tx0e[:, None] + kidx % w_safe, ty0e[:, None] + kidx // w_safe, kidx
+
+    cells_s = cells(tx0, ty0, w, k_small)
+    cells_b = cells(tx0[big_idx], ty0[big_idx], w[big_idx], K)
+    area_small_raw = torch.where(is_big, 0, area)
+    area_big_raw = torch.where(big_used, area[big_idx], 0)
+    mask_s = cells_s[2] < area_small_raw[:, None]
+    mask_b = cells_b[2] < area_big_raw[:, None]
+
+    # --- 2a. exact per-cell σ-bound tile test (optional) --------------------
+    # The +1e-4 absolute margin on the bound makes a rounding kill of a
+    # genuinely contributing pair impossible (σ evaluation noise is ~1e-6).
+    if opacities is not None:
+        mx_s = proj.means2d[order, 0]
+        my_s = proj.means2d[order, 1]
+        A2_s = 0.5 * proj.conics[order, 0]
+        B_s = proj.conics[order, 1]
+        C2_s = 0.5 * proj.conics[order, 2]
+        bound_s = sigma_bound(
+            opacities[order], valid, config.sigma_cutoff, config.alpha_skip
+        ) + 1e-4
+
+        def reaches(cell, rows):
+            smin = _cell_sigma_min(
+                cell[0], cell[1],
+                mx_s[rows][:, None], my_s[rows][:, None],
+                A2_s[rows][:, None], B_s[rows][:, None], C2_s[rows][:, None],
+                tw, th,
+            )
+            return smin <= bound_s[rows][:, None]
+
+        mask_s = mask_s & reaches(cells_s, slice(None))
+        mask_b = mask_b & reaches(cells_b, big_idx)
+        # per-rank survivor counts replace the raw rect areas downstream
+        area = _i32(torch.sum(mask_s, dim=1))
+        area = area.index_add(0, big_idx, _i32(torch.sum(mask_b, dim=1)))
+
+    # --- 2b. rank-deterministic budget truncation ---------------------------
+    # Drop WHOLE gaussians from the far end of the depth order until the pair
+    # budget fits: overflow is semantically clean (the farthest splats vanish)
+    # and per-rank pair counts stay exact.
+    budget = min(config.pair_budget(n), n * k_small + m_big * K)
+    ends_all = torch.cumsum(area, dim=0)
+    fits = ends_all <= budget
+    eff_area = torch.where(fits, area, 0)
+    num_pairs = _i32(torch.sum(area))
+    overflow = num_pairs - _i32(torch.sum(eff_area))
+    rank_starts = torch.cat(
+        [torch.zeros((1,), dtype=torch.int32, device=dev),
+         _i32(torch.cumsum(eff_area, dim=0))]
+    )
+
+    # --- 3. padded pair expansion, then ONE sort -----------------------------
+    # key = (tile << 32) | depth rank; cells that emit nothing carry the
+    # sentinel tile id num_tiles and sort to the end
+    sentinel = num_tiles << 32
+
+    def keys(cell, ok, rank_e):
+        tile = (cell[1] * tx_n + cell[0]).to(torch.int64)
+        key = (tile << 32) | rank_e[:, None].to(torch.int64)
+        return torch.where(ok, key, sentinel).reshape(-1)
+
+    flat_keys = torch.cat([
+        keys(cells_s, mask_s & fits[:, None], ranks),
+        keys(cells_b, mask_b & fits[big_idx][:, None], _i32(big_idx)),
+    ])
+    sorted_keys = torch.sort(flat_keys).values[:budget]
+    pair_tile = _i32(sorted_keys >> 32)
+    pair_gauss = torch.where(
+        pair_tile < num_tiles, _i32(sorted_keys & 0xFFFFFFFF), 0
+    )
+
+    # --- 4. per-tile segment boundaries -------------------------------------
+    boundaries = _i32(torch.searchsorted(
+        pair_tile, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev)
+    ))
+
+    return BinningResult(
+        order=order,
+        pair_gauss=pair_gauss,
+        pair_tile=pair_tile,
+        tile_offsets=boundaries[:-1].contiguous(),
+        tile_counts=boundaries[1:] - boundaries[:-1],
+        num_pairs=num_pairs,
+        overflow=overflow,
+        clamped_rects=clamped,
+        rank_starts=rank_starts,
+        tier_overflow=tier_ovf,
+    )

@@ -1,0 +1,168 @@
+"""Top-level render pipeline: activations → SH → projection → rasterization.
+
+Counterpart of gaussian_splat_tpu/ops/render.py. Backend selection:
+
+  * "reference":  the O(N·H·W) oracle (tests/small scenes; exact semantics)
+  * "torch_tile": tile binning + segmented-cumsum compositing in plain torch
+                  (the CPU backend, differentiable by autograd, and the plain
+                  version the CUDA kernel is held against)
+  * "cuda":       tile binning + the hand-written CUDA forward raster kernel
+  * "auto":       "cuda" for CUDA tensors, "torch_tile" for CPU tensors
+
+The choice follows where the model's tensors lie, never whether a build or a
+launch succeeded: on CUDA tensors "auto" launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from gaussian_splat_tpu_torch.camera import Camera
+from gaussian_splat_tpu_torch.config import BACKENDS, RenderConfig
+from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
+from gaussian_splat_tpu_torch.ops import reference as reference_ops
+from gaussian_splat_tpu_torch.ops import sh as sh_ops
+from gaussian_splat_tpu_torch.ops.binning import BinningStats, tile_rects
+from gaussian_splat_tpu_torch.ops.projection import (
+    ProjectedGaussians, project_gaussians, view_directions,
+)
+
+
+class RenderOutput(NamedTuple):
+    image: torch.Tensor  # (H, W, 3) composited color (background applied)
+    alpha: torch.Tensor  # (H, W) 1 − T_final
+    depth: Optional[torch.Tensor] = None  # (H, W) α-weighted expected depth
+    projected: Optional[ProjectedGaussians] = None  # per-gaussian debug info
+    stats: Optional[BinningStats] = None  # binning sentinels of the tiled
+    #   backends (None for "reference"); 0-d tensors, unread unless asked for
+
+
+def _project_and_shade(model: GaussianModel, camera: Camera, config: RenderConfig):
+    if camera.device != model.device:
+        raise ValueError(
+            f"camera is on {camera.device}, model on {model.device}: "
+            f"move one with .to(device)"
+        )
+    proj = project_gaussians(
+        model.means,
+        model.quats,
+        model.scales,
+        camera,
+        near_plane=config.near_plane,
+        cov2d_dilation=config.cov2d_dilation,
+        sigma_extent=config.sigma_extent,
+        # opacity-aware extents are an upper bound for the antialiased mode
+        # too: compensation ≤ 1 only lowers effective opacity further
+        opacities=model.opacities if config.opacity_aware_extent else None,
+        alpha_skip=config.alpha_skip if config.opacity_aware_extent else None,
+    )
+    degree = min(config.sh_degree, model.sh_degree)
+    dirs = view_directions(model.means, camera)
+    colors = sh_ops.eval_sh(degree, model.sh, dirs)
+    return proj, colors
+
+
+def _effective_opacities(model: GaussianModel, proj, config: RenderConfig):
+    op = model.opacities
+    if config.antialiased:
+        op = op * proj.compensation
+    return op
+
+
+def render(
+    model: GaussianModel,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+    screen_offset: Optional[torch.Tensor] = None,
+) -> RenderOutput:
+    """Render a scene on the device the model lies on.
+
+    On CPU tensors the result is differentiable w.r.t. every GaussianModel
+    parameter; the CUDA kernel's backward belongs to the training slice and
+    raises. `screen_offset` is an optional (N, 2) tensor added to the
+    projected 2D means (the densification criterion differentiates w.r.t. it)."""
+    backend = config.backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        backend = "cuda" if model.device.type == "cuda" else "torch_tile"
+
+    proj, colors = _project_and_shade(model, camera, config)
+    if screen_offset is not None:
+        proj = proj._replace(means2d=proj.means2d + screen_offset)
+    opacities = _effective_opacities(model, proj, config)
+
+    stats = None
+    if backend == "reference":
+        image, t_final, depth = reference_ops.render_reference(
+            proj.means2d, proj.conics, colors, opacities, proj.depths,
+            proj.valid, camera.width, camera.height, config,
+        )
+    elif backend == "torch_tile":
+        from gaussian_splat_tpu_torch.ops import tile_raster
+
+        image, t_final, depth, stats = tile_raster.render_tiled(
+            proj, colors, opacities, camera.width, camera.height, config
+        )
+    else:  # "cuda"
+        from gaussian_splat_tpu_torch.ops import cuda_raster
+
+        image, t_final, depth, stats = cuda_raster.render_tiled_cuda(
+            proj, colors, opacities, camera.width, camera.height, config
+        )
+
+    return RenderOutput(
+        image=image, alpha=1.0 - t_final, depth=depth, projected=proj, stats=stats
+    )
+
+
+@torch.no_grad()
+def calibrate_render_config(
+    model: GaussianModel,
+    cameras,
+    config: RenderConfig = RenderConfig(),
+    pair_headroom: float = 1.15,
+    big_headroom: float = 1.2,
+) -> RenderConfig:
+    """Measure scene-dependent capacities and return a tightened config.
+
+    Every pair-proportional stage scales with `pair_budget`, and the big-tier
+    expansion block with the tier capacity — but both defaults are sized for a
+    worst case the scene may be nowhere near. This helper renders nothing: one
+    projection + rect pass per calibration camera measures
+
+      * the total K-capped rect-cell count (an upper bound on num_pairs — the
+        σ-bound cell test only removes pairs), setting `pairs_per_gaussian`
+        with `pair_headroom`, and
+      * the big-tier-eligible count (K-capped area > small cap), setting
+        `big_tier_capacity` with `big_headroom` (so tier_overflow == 0).
+
+    With both sentinels at 0 the calibrated config renders BIT-IDENTICAL
+    output to the default config — the budget and capacity only affect
+    truncation and padding. `cameras` is one Camera or an iterable; the max
+    over cameras is used."""
+    if isinstance(cameras, Camera):
+        cameras = [cameras]
+    n = model.num_gaussians
+    max_sum_area = 0
+    max_eligible = 0
+    for cam in cameras:
+        proj, _ = _project_and_shade(model, cam, config)
+        _tx0, _ty0, w, h, _cl = tile_rects(
+            proj.means2d, proj.radii, proj.valid, cam.width, cam.height,
+            config, extents=proj.extents,
+        )
+        area = w * h
+        max_sum_area = max(max_sum_area, int(area.sum()))
+        max_eligible = max(
+            max_eligible, int((area > config.small_tiles_per_gaussian).sum())
+        )
+
+    ppg = max(max_sum_area * pair_headroom / max(n, 1), 0.5)
+    big_cap = max(-(-int(max_eligible * big_headroom) // 1024) * 1024, 64)
+    return dataclasses.replace(
+        config, pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap
+    )

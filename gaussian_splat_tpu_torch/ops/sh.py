@@ -1,0 +1,95 @@
+"""Real spherical-harmonics color evaluation, degrees 0-3.
+
+Counterpart of gaussian_splat_tpu/ops/sh.py. Coefficient layout: `sh` has
+shape (..., K, 3) with K = (degree+1)², ordered [DC, band1(3), band2(5),
+band3(7)] — the 3DGS PLY layout after de-interleaving.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Standard real-SH constants (3DGS convention).
+SH_C0 = 0.28209479177387814
+SH_C1 = 0.4886025119029199
+SH_C2 = (
+    1.0925484305920792,
+    -1.0925484305920792,
+    0.31539156525252005,
+    -1.0925484305920792,
+    0.5462742152960396,
+)
+SH_C3 = (
+    -0.5900435899266435,
+    2.890611442640554,
+    -0.4570457994644658,
+    0.3731763325901154,
+    -0.4570457994644658,
+    1.445305721320277,
+    -0.5900435899266435,
+)
+
+
+def num_sh_bases(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
+def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Evaluate SH color.
+
+    Args:
+      degree: active degree 0..3.
+      sh: (..., K, 3) coefficients with K >= (degree+1)².
+      dirs: (..., 3) **unit** view directions (gaussian center − camera center).
+
+    Returns:
+      (..., 3) RGB with the +0.5 DC offset applied and clamped to ≥ 0 (clamped
+      below only, letting HDR-ish colors through to compositing).
+    """
+    if degree < 0 or degree > 3:
+        raise ValueError(f"SH degree must be in [0,3], got {degree}")
+
+    result = SH_C0 * sh[..., 0, :]
+
+    if degree >= 1:
+        x = dirs[..., 0:1]
+        y = dirs[..., 1:2]
+        z = dirs[..., 2:3]
+        result = (
+            result
+            - SH_C1 * y * sh[..., 1, :]
+            + SH_C1 * z * sh[..., 2, :]
+            - SH_C1 * x * sh[..., 3, :]
+        )
+
+    if degree >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        result = (
+            result
+            + SH_C2[0] * xy * sh[..., 4, :]
+            + SH_C2[1] * yz * sh[..., 5, :]
+            + SH_C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
+            + SH_C2[3] * xz * sh[..., 7, :]
+            + SH_C2[4] * (xx - yy) * sh[..., 8, :]
+        )
+
+    if degree >= 3:
+        result = (
+            result
+            + SH_C3[0] * y * (3.0 * xx - yy) * sh[..., 9, :]
+            + SH_C3[1] * xy * z * sh[..., 10, :]
+            + SH_C3[2] * y * (4.0 * zz - xx - yy) * sh[..., 11, :]
+            + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * sh[..., 12, :]
+            + SH_C3[4] * x * (4.0 * zz - xx - yy) * sh[..., 13, :]
+            + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
+            + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :]
+        )
+
+    return torch.clamp_min(result + 0.5, 0.0)
+
+
+def rgb_to_sh_dc(rgb):
+    """Inverse of the DC-band affine map: rgb → f_dc raw coefficient.
+    Works on tensors and numpy arrays alike."""
+    return (rgb - 0.5) / SH_C0

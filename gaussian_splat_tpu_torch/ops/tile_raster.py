@@ -1,0 +1,257 @@
+"""Tile rasterizer in plain torch: segmented log-space compositing over the pair list.
+
+Counterpart of gaussian_splat_tpu/ops/tile_raster.py, and the PLAIN VERSION of
+the CUDA forward raster kernel (ops/cuda_raster.py): it takes the same
+arguments — the rank-ordered per-splat table, the pair list and the per-tile
+segments — and returns the same images. It is the port's CPU backend,
+differentiable end-to-end by autograd, and on the GPU the yardstick the kernel
+is held against.
+
+Per-tile transmittance is a segmented exclusive prefix product over the pair
+list, computed as exp(segmented-cumsum(log1p(−α))) as in the reference (with
+the running sum in float64, see `composite_pairs`). The CUDA kernel multiplies
+T sequentially instead; the two differ by rounding only.
+
+`composite_pairs` works on a RANGE of tiles, so a large frame can be composited
+in batches: its temporaries are (pairs in the range) × (pixels per tile).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from gaussian_splat_tpu_torch.config import RenderConfig
+from gaussian_splat_tpu_torch.ops.binning import BinningStats, bin_gaussians
+from gaussian_splat_tpu_torch.ops.falloff import (
+    alpha_from_sigma, sigma_bound, sigma_quadform,
+)
+from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
+
+# Columns of the per-splat table (rows in depth-rank order). The first ten are
+# the reference's pair features; column 10 is the per-splat σ bound, computed
+# once here so that no logarithm sits in a kernel's keep decision; column 11
+# pads the row to three 16-byte loads.
+TABLE_COLS = 12
+COL_MX, COL_MY, COL_A, COL_B, COL_C = 0, 1, 2, 3, 4
+COL_R, COL_DEPTH, COL_OP, COL_BOUND = 5, 8, 9, 10
+
+
+def build_splat_table(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    order: torch.Tensor,
+    config: RenderConfig,
+) -> torch.Tensor:
+    """(N, 12) float32 table [mx,my,A,B,C,r,g,b,depth,op,bound,0] gathered
+    into depth-rank order — the ONE per-splat gather of a frame. Pair-sized
+    feature arrays are never built: raster backends gather rows by
+    `pair_gauss` themselves."""
+    bound = sigma_bound(
+        opacities.detach(), proj.valid, config.sigma_cutoff, config.alpha_skip
+    )
+    table = torch.cat(
+        [
+            proj.means2d,
+            proj.conics,
+            colors,
+            proj.depths[:, None],
+            opacities[:, None],
+            bound[:, None],
+            torch.zeros_like(bound)[:, None],
+        ],
+        dim=1,
+    )
+    return table[order].contiguous()
+
+
+def tiles_to_image(
+    tiles: torch.Tensor, tx_n: int, ty_n: int, width: int, height: int,
+    tw: int, th: int,
+) -> torch.Tensor:
+    """(T, tw·th, C) tile-major pixels → (H, W, C) image (cropped)."""
+    c = tiles.shape[-1]
+    img = tiles.reshape(ty_n, tx_n, th, tw, c)
+    img = img.permute(0, 2, 1, 3, 4).reshape(ty_n * th, tx_n * tw, c)
+    return img[:height, :width]
+
+
+def pair_pixel_sigma(
+    table: torch.Tensor,
+    pair_gauss: torch.Tensor,
+    tile_offsets: torch.Tensor,
+    tile_counts: torch.Tensor,
+    num_tiles_x: int,
+    config: RenderConfig,
+    tile_range: Tuple[int, int],
+):
+    """The (pixel, pair) grid of the tiles [t0, t1): returns
+    (rows (b, 12), local_tile (b,), start, px (b, npix), py (b, npix),
+    sigma (b, npix)) for the b pairs of the range, which are the slice
+    [start, start+b) of the tile-sorted pair list."""
+    tw, th = config.tile_width, config.tile_height
+    npix = tw * th
+    dev = table.device
+    t0, t1 = tile_range
+
+    counts = tile_counts[t0:t1].to(torch.int64)
+    b = int(counts.sum())
+    start = int(tile_offsets[t0]) if b > 0 else 0
+    local_tile = torch.repeat_interleave(
+        torch.arange(t1 - t0, device=dev), counts, output_size=b
+    )  # (b,) tile index within the range
+    rows = table[pair_gauss[start : start + b].to(torch.int64)]  # (b, 12)
+
+    # pixel centers of each pair's tile: (b, npix), integer-exact in float32
+    lane = torch.arange(npix, device=dev)
+    tile = local_tile + t0
+    px = ((tile % num_tiles_x)[:, None] * tw + (lane % tw)[None, :]).to(
+        torch.float32
+    ) + 0.5
+    py = (
+        torch.div(tile, num_tiles_x, rounding_mode="floor")[:, None] * th
+        + torch.div(lane, tw, rounding_mode="floor")[None, :]
+    ).to(torch.float32) + 0.5
+
+    dx = px - rows[:, COL_MX : COL_MX + 1]
+    dy = py - rows[:, COL_MY : COL_MY + 1]
+    sigma = sigma_quadform(
+        dx, dy,
+        0.5 * rows[:, COL_A : COL_A + 1],
+        rows[:, COL_B : COL_B + 1],
+        0.5 * rows[:, COL_C : COL_C + 1],
+    )
+    return rows, local_tile, start, px, py, sigma
+
+
+def composite_pairs(
+    table: torch.Tensor,  # (N, 12) rank-ordered per-splat table
+    pair_gauss: torch.Tensor,  # (B,) depth rank per pair
+    tile_offsets: torch.Tensor,  # (T,) segment start per tile
+    tile_counts: torch.Tensor,  # (T,) pairs per tile
+    num_tiles_x: int,
+    config: RenderConfig,
+    tile_range: Optional[Tuple[int, int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composite the tiles [t0, t1) of `tile_range` (default: all) into
+    (t1−t0, tw·th, 4) r,g,b,depth and (t1−t0, tw·th) T_final."""
+    npix = config.tile_width * config.tile_height
+    dev = table.device
+    t0, t1 = (0, tile_offsets.shape[0]) if tile_range is None else tile_range
+    nt = t1 - t0
+    rows, local_tile, start, _, _, sigma = pair_pixel_sigma(
+        table, pair_gauss, tile_offsets, tile_counts, num_tiles_x, config, (t0, t1)
+    )
+    b = rows.shape[0]
+    alpha, _, _ = alpha_from_sigma(
+        sigma, rows[:, COL_OP : COL_OP + 1],
+        rows[:, COL_BOUND : COL_BOUND + 1].detach(), config.alpha_clamp,
+    )
+
+    # segmented exclusive prefix product along the pair axis, in log space.
+    # The running sum spans every segment of the range and is then re-based
+    # per segment, so it is carried in float64: in float32 the re-basing
+    # cancels to an absolute error of ulp(|running sum|), which over a few
+    # ten thousand pairs reaches 1e-3 in T (measured against the kernel).
+    la = torch.log1p(-alpha)  # (b, npix)
+    cum = torch.cumsum(la.double(), dim=0)
+    excl = cum - la
+    seg_first = (tile_offsets[t0:t1].to(torch.int64) - start).clamp(0, max(b - 1, 0))
+    if b > 0:
+        seg_start = excl[seg_first]  # (nt, npix) cumsum before each segment
+        t_excl = torch.exp((excl - seg_start[local_tile]).float())
+    else:
+        t_excl = la
+    weights = alpha * t_excl  # (b, npix)
+
+    chans = rows[:, COL_R : COL_DEPTH + 1]  # (b, 4) r,g,b,depth
+    tiles_rgbd = torch.zeros((nt, npix, 4), dtype=table.dtype, device=dev)
+    tiles_rgbd = tiles_rgbd.index_add(
+        0, local_tile, weights[..., None] * chans[:, None, :]
+    )
+    la_tot = torch.zeros((nt, npix), dtype=table.dtype, device=dev)
+    la_tot = la_tot.index_add(0, local_tile, la)
+    return tiles_rgbd, torch.exp(la_tot)
+
+
+def tile_batches(
+    tile_offsets: torch.Tensor, tile_counts: torch.Tensor, max_batch_pairs: int
+) -> Iterator[Tuple[int, int]]:
+    """Consecutive tile ranges [t0, t1) of at most `max_batch_pairs` pairs each
+    (one tile at least), from the segment ends (one host read of T integers)."""
+    num_tiles = tile_offsets.shape[0]
+    ends = (tile_offsets + tile_counts).cpu().numpy()
+    t0 = 0
+    while t0 < num_tiles:
+        first = int(ends[t0 - 1]) if t0 > 0 else 0
+        t1 = int(np.searchsorted(ends, first + max_batch_pairs, side="right"))
+        t1 = min(max(t1, t0 + 1), num_tiles)
+        yield t0, t1
+        t0 = t1
+
+
+def raster_forward_torch(
+    table: torch.Tensor,
+    pair_gauss: torch.Tensor,
+    tile_offsets: torch.Tensor,
+    tile_counts: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    max_batch_pairs: int = 1 << 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raster stage in plain torch: same arguments and results as the
+    CUDA wrapper `cuda_raster.raster_forward`. Returns (rgbd (H,W,4),
+    T_final (H,W)), no background applied.
+
+    Tiles are composited in batches of at most `max_batch_pairs` pairs (one
+    tile at least), bounding the (pairs × pixels) temporaries."""
+    tw, th = config.tile_width, config.tile_height
+    tx_n, ty_n = config.tiles_x(width), config.tiles_y(height)
+
+    rgbd_parts, t_parts = [], []
+    for t0, t1 in tile_batches(tile_offsets, tile_counts, max_batch_pairs):
+        rgbd_t, tfin_t = composite_pairs(
+            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
+        )
+        rgbd_parts.append(rgbd_t)
+        t_parts.append(tfin_t)
+    rgbd = tiles_to_image(torch.cat(rgbd_parts), tx_n, ty_n, width, height, tw, th)
+    t_final = tiles_to_image(
+        torch.cat(t_parts)[..., None], tx_n, ty_n, width, height, tw, th
+    )[..., 0]
+    return rgbd, t_final
+
+
+RasterFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+def render_tiled(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    raster_fn: RasterFn = raster_forward_torch,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BinningStats]:
+    """Full tiled render: bin → per-splat table → raster → background.
+    Returns (image (H,W,3), T_final (H,W), depth (H,W), BinningStats).
+
+    `raster_fn` is the raster stage: this module's plain version by default,
+    the CUDA kernel's wrapper when called through `cuda_raster`."""
+    binning = bin_gaussians(proj, width, height, config, opacities=opacities)
+    table = build_splat_table(proj, colors, opacities, binning.order, config)
+    rgbd, t_final = raster_fn(
+        table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
+        width, height, config,
+    )
+    depth = rgbd[..., 3]
+    image = rgbd[..., :3]
+    if any(config.background):  # over black there is nothing to add
+        bg = torch.tensor(config.background, dtype=torch.float32, device=rgbd.device)
+        image = image + t_final[..., None] * bg
+    return image, t_final, depth, BinningStats.of(binning)

@@ -1,0 +1,93 @@
+"""Per-stage timing + rolling metrics.
+
+Counterpart of gaussian_splat_tpu/utils/timing.py. `ScopeTimer` scopes are
+wall-clock with a device synchronisation at exit when they time a CUDA device
+(PyTorch returns before the device finishes, so an unsynchronised scope would
+measure the enqueue). The profiler-trace and benchmark helpers arrive later.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+from typing import Dict, Optional
+
+import torch
+
+
+class RollingStats:
+    """Fixed-window rolling statistics."""
+
+    def __init__(self, window: int = 120):
+        self.window = window
+        self._values: collections.deque = collections.deque(maxlen=window)
+
+    def push(self, value: float) -> None:
+        self._values.append(float(value))
+
+    @property
+    def mean(self) -> float:
+        return sum(self._values) / len(self._values) if self._values else 0.0
+
+    @property
+    def last(self) -> float:
+        return self._values[-1] if self._values else 0.0
+
+    @property
+    def min(self) -> float:
+        return min(self._values) if self._values else 0.0
+
+    @property
+    def max(self) -> float:
+        return max(self._values) if self._values else 0.0
+
+    @property
+    def median(self) -> float:
+        vals = sorted(self._values)
+        return vals[len(vals) // 2] if vals else 0.0
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+
+class ScopeTimer:
+    """Named wall-clock scopes with device synchronization.
+
+    Usage:
+        timers = ScopeTimer(device)
+        with timers.scope("frame"):
+            out = render(...)
+    """
+
+    def __init__(self, device: Optional[torch.device] = None, window: int = 120):
+        self.stats: Dict[str, RollingStats] = {}
+        self.window = window
+        self.device = None if device is None else torch.device(device)
+
+    def _sync(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        self._sync()  # work queued before the scope is not its own
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            elapsed_ms = (time.perf_counter() - start) * 1000.0
+            self.stats.setdefault(name, RollingStats(self.window)).push(elapsed_ms)
+
+    def summary(self) -> Dict[str, float]:
+        return {name: s.mean for name, s in self.stats.items()}
+
+    def report(self) -> str:
+        lines = []
+        for name, s in sorted(self.stats.items()):
+            lines.append(
+                f"{name:<24} last {s.last:8.3f} ms   mean {s.mean:8.3f} ms   "
+                f"min {s.min:8.3f}   max {s.max:8.3f}   (n={len(s)})"
+            )
+        return "\n".join(lines)
