@@ -2,13 +2,16 @@
 
 Same module layout and names as the JAX package beside it, so a reader finds
 each counterpart; inside, PyTorch idiom: `nn.Module` parameters, plain
-functions on tensors, explicit devices, and a hand-written CUDA kernel
-(csrc/raster_fwd.cu) behind a `torch.autograd.Function` where the JAX package
-has a Pallas kernel.
+functions on tensors, explicit devices, and hand-written CUDA kernels
+(csrc/raster_fwd.cu, raster_bwd.cu, segsum.cu) behind a
+`torch.autograd.Function` where the JAX package has Pallas kernels.
 
-Ported so far: the frame-serving path — load/create a model, `render` (forward),
-`Viewer.render_frame`, `cli render`. The package imports torch and numpy only;
-it never imports jax or anything of gaussian_splat_tpu.
+Ported so far: the frame-serving path — load/create a model, `render`,
+`Viewer.render_frame`, `cli render` — and the training path — `render`'s
+gradient, the photometric loss, per-group Adam, `fit`, `fit_multiview`,
+`fit_multiview_adc` (density control at fixed N), checkpoints, `cli train`.
+The package imports torch and numpy only; it never imports jax or anything of
+gaussian_splat_tpu.
 
 Entry points run on the GPU unless the caller asks for the CPU: every public
 constructor that creates tensors takes `device=None`, meaning "cuda", and
@@ -16,17 +19,22 @@ raises when no GPU is present rather than carrying on on the CPU.
 """
 
 from gaussian_splat_tpu_torch.camera import Camera
-from gaussian_splat_tpu_torch.config import RenderConfig
+from gaussian_splat_tpu_torch.config import RenderConfig, TrainConfig
 from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_tpu_torch.ops.render import calibrate_render_config, render
+from gaussian_splat_tpu_torch.train.trainer import fit, fit_multiview, fit_multiview_adc
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Camera",
     "RenderConfig",
+    "TrainConfig",
     "GaussianModel",
     "render",
     "calibrate_render_config",
+    "fit",
+    "fit_multiview",
+    "fit_multiview_adc",
     "__version__",
 ]

@@ -2,12 +2,13 @@
 
 Subcommands:
   render     — render a PLY scene to a PNG from an orbit pose
+  train      — fit a scene to a target image
   turntable  — render an orbit to PNG frames
   info       — print scene statistics for a PLY
 
 Usage: python -m gaussian_splat_tpu_torch.cli <subcommand> [options]
 
-Everything runs on the GPU unless `--device cpu` is given. `view`, `train` and
+Everything runs on the GPU unless `--device cpu` is given. `view` and
 `validate` arrive with their slices.
 """
 
@@ -82,6 +83,33 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from gaussian_splat_tpu_torch.camera import orbit_camera
+    from gaussian_splat_tpu_torch.config import TrainConfig
+    from gaussian_splat_tpu_torch.io.ply import save_gaussians
+    from gaussian_splat_tpu_torch.train.trainer import fit
+
+    model = _load_model(args)
+    target = np.asarray(Image.open(args.target).convert("RGB"), np.float32) / 255.0
+    cam = orbit_camera(
+        args.radius, args.azimuth, args.elevation,
+        width=target.shape[1], height=target.shape[0], device=model.device,
+    )
+    tc = TrainConfig(num_steps=args.steps, checkpoint_dir=args.checkpoint_dir)
+    fitted, history = fit(
+        model, cam, torch.from_numpy(target), _render_config(args), tc,
+        callback=lambda i, l, s: print(f"step {i}: loss {l:.5f}"),
+    )
+    save_gaussians(args.out, fitted)
+    print(f"trained {args.steps} steps on {model.device}, "
+          f"final loss {history[-1]:.5f} -> {args.out}")
+    return 0
+
+
 def cmd_turntable(args) -> int:
     from gaussian_splat_tpu_torch.viewer.viewer import Viewer
 
@@ -129,6 +157,18 @@ def main(argv=None) -> int:
     p.add_argument("--elevation", type=float, default=20.0)
     _add_render_config_args(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("train", help="fit a scene to a target image")
+    p.add_argument("ply")
+    p.add_argument("--target", required=True, help="target image (PNG/JPEG)")
+    p.add_argument("--out", default="trained.ply")
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--azimuth", type=float, default=0.0)
+    p.add_argument("--elevation", type=float, default=20.0)
+    p.add_argument("--checkpoint-dir", default=None)
+    _add_render_config_args(p)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("turntable", help="render an orbit to PNG frames")
     p.add_argument("ply")

@@ -1,11 +1,13 @@
-"""Render configuration: the port's own copy of gaussian_splat_tpu/config.py.
+"""Render and training configuration: the port's own copy of
+gaussian_splat_tpu/config.py.
 
 Every semantic field and default of the JAX `RenderConfig` is kept (the parity
 tests compare them one by one). Dropped: the TPU-only knobs
 `tiles_per_program`, `dma_chunks`, `exact_vjp` and the 128-lane rule on
 `chunk_size`. `chunk_size` itself stays because `pair_budget` rounds to it, so
 budgets — and therefore overflow truncation — equal the reference's.
-Sharding fields and `TrainConfig` arrive with the slices that use them.
+`TrainConfig` has the reference's fields and defaults. The sharding fields
+arrive with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -106,3 +108,26 @@ class RenderConfig:
         budget = min(worst, max(int(n_gaussians * self.pairs_per_gaussian), 4096))
         c = self.chunk_size
         return -(-budget // c) * c
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop configuration."""
+
+    lr_means: float = 1.6e-4
+    lr_means_final: float = 1.6e-6  # 3DGS position-lr exponential decay target
+    lr_decay_steps: Optional[int] = None  # decay horizon (defaults to the 3DGS
+    #   30 000-iteration convention, independent of num_steps)
+    lr_quats: float = 1e-3
+    lr_scales: float = 5e-3
+    lr_opacities: float = 5e-2
+    lr_sh: float = 2.5e-3
+    sh_warmup_every: int = 0  # 3DGS SH warmup: raise the active SH degree by 1
+    #   every K steps (coefficients of inactive bands are masked inside the
+    #   step; the model is untouched). 0 = off.
+    ssim_weight: float = 0.2  # loss = (1-w)*L1 + w*(1-SSIM), 3DGS convention
+    num_steps: int = 1000
+    steps_per_dispatch: int = 1  # train steps per call of a step function (a
+    #   Python loop here; the call returns the last step's loss)
+    checkpoint_every: int = 500
+    checkpoint_dir: Optional[str] = None

@@ -1,8 +1,11 @@
-"""Parameters carried across from the JAX package, by way of numpy.
+"""Parameters and training state carried across from the JAX package, by way
+of numpy.
 
 The JAX `GaussianModel`'s five leaves and the JAX `Camera`'s fields arrive
 here as numpy arrays (the caller does the `np.asarray(...)`), so both packages
-can be handed bit-identical inputs. This module imports no jax.
+can be handed bit-identical inputs; likewise the optax Adam moments with their
+update count, and the densify scores, so that both trainers can start from
+the same mid-run state. This module imports no jax.
 """
 
 from __future__ import annotations
@@ -42,6 +45,43 @@ def camera_from_numpy(
         viewmat=torch.tensor(np.asarray(viewmat, np.float32), device=device),
         fx=scalar(fx), fy=scalar(fy), cx=scalar(cx), cy=scalar(cy),
         width=int(width), height=int(height),
+    )
+
+
+def load_adam_state(
+    optimizer: torch.optim.Adam,
+    model: GaussianModel,
+    mu: Mapping[str, np.ndarray],
+    nu: Mapping[str, np.ndarray],
+    count: int,
+) -> None:
+    """Put Adam moments into `optimizer` (made by `trainer.make_optimizer` for
+    `model`): `mu[name]` and `nu[name]` are the first and second moments of
+    leaf `name` (optax's `ScaleByAdamState.mu/.nu`), `count` the number of
+    updates already made (its `.count`)."""
+    for name in GaussianModel.LEAVES:
+        param = getattr(model, name)
+
+        def moment(x):
+            t = torch.tensor(np.asarray(x, np.float32), device=param.device)
+            if t.shape != param.shape:
+                raise ValueError(f"{name}: moment {tuple(t.shape)} vs leaf {tuple(param.shape)}")
+            return t
+
+        optimizer.state[param] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": moment(mu[name]),
+            "exp_avg_sq": moment(nu[name]),
+        }
+
+
+def densify_state_from_numpy(grad_score, ema_beta: float = 0.9, device: DeviceLike = None):
+    """A `DensifyState` from the reference's `grad_score` (N,) and `ema_beta`."""
+    from gaussian_splat_tpu_torch.train.densify import DensifyState
+
+    return DensifyState(
+        grad_score=torch.tensor(np.asarray(grad_score, np.float32), device=resolve_device(device)),
+        ema_beta=float(ema_beta),
     )
 
 

@@ -48,14 +48,18 @@
 // accumulation, or use finer tiles.
 //
 // `walked` (optional, may be null) returns the pairs each block walked before
-// it left its loop. chip_smoke.py needs it to state the bound above: the work
-// depends on the data through the early exit, and only the kernel knows where
-// each block stopped.
+// it left its loop. The backward kernel (raster_bwd.cu) takes it as its
+// segment length, so that it stops where this kernel stopped, and
+// chip_smoke.py needs it to state the bound above: the work depends on the
+// data through the early exit, and only the kernel knows where each block
+// stopped.
+//
+// The per-(pixel, splat) alpha code and the row gather live in
+// raster_common.cuh, shared with the backward kernel.
 
-#include <cuda_runtime.h>
+#include "raster_common.cuh"
 
 #define BATCH 256        // pairs staged per shared-memory batch
-#define ROW_F4 3         // float4 loads per table row (12 floats)
 
 // table row: [mx, my, A, B | C, r, g, b | depth, op, bound, pad]
 extern "C" __global__ void raster_fwd_kernel(
@@ -88,34 +92,18 @@ extern "C" __global__ void raster_fwd_kernel(
     for (int base = 0; base < cnt; base += BATCH) {
         const int nb = min(BATCH, cnt - base);
         // cooperative fused gather: nb rows of three float4 each
-        for (int i = p; i < nb * ROW_F4; i += blockDim.x) {
-            const int j = i / ROW_F4;
-            const int k = i - j * ROW_F4;
-            const int gi = pair_gauss[off + base + j];
-            rows[i] = table[(size_t)gi * ROW_F4 + k];
-        }
+        gather_rows(rows, table, pair_gauss, off + base, nb);
         __syncthreads();
 
         for (int j = 0; j < nb; ++j) {
             const float4 f0 = rows[j * ROW_F4 + 0];  // mx, my, A, B
             const float4 f1 = rows[j * ROW_F4 + 1];  // C, r, g, b
             const float4 f2 = rows[j * ROW_F4 + 2];  // depth, op, bound, pad
-            const float dx = __fsub_rn(px, f0.x);
-            const float dy = __fsub_rn(py, f0.y);
-            const float A2 = __fmul_rn(0.5f, f0.z);
-            const float C2 = __fmul_rn(0.5f, f1.x);
-            // sigma = (A2*dx)*dx + (C2*dy + B*dx)*dy, every op rounded alone
-            const float sigma = __fadd_rn(
-                __fmul_rn(__fmul_rn(A2, dx), dx),
-                __fmul_rn(__fadd_rn(__fmul_rn(C2, dy), __fmul_rn(f0.w, dx)), dy));
-            if (sigma >= 0.0f && sigma <= f2.z) {
-                const float alpha = fminf(__fmul_rn(f2.y, expf(-sigma)), alpha_clamp);
-                const float w = alpha * T;
-                r += f1.y * w;
-                g += f1.z * w;
-                b += f1.w * w;
-                d += f2.x * w;
-                T *= (1.0f - alpha);
+            float dx, dy;
+            const float sigma = splat_sigma(px, py, f0, f1.x, &dx, &dy);
+            if (splat_keep(sigma, f2.z)) {
+                const float alpha = fminf(splat_alpha_raw(f2.y, sigma), alpha_clamp);
+                composite_step(alpha, f1, f2.x, &T, &r, &g, &b, &d);
             }
         }
         done_pairs = base + nb;

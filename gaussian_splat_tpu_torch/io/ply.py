@@ -1,8 +1,8 @@
-"""PLY scene reader in the 3DGS convention.
+"""PLY scene reader and writer in the 3DGS convention.
 
-Counterpart of the reading half of gaussian_splat_tpu/io/ply.py (own copy of
-its pure-numpy path; the native multithreaded deinterleaver and the writer
-arrive with the I/O slice). Parameters stay RAW: logits, log-scales and SH
+Counterpart of gaussian_splat_tpu/io/ply.py (own copy of its pure-numpy paths;
+the native multithreaded (de)interleaver arrives with the I/O slice — the
+files it reads and writes are the same bytes). Parameters stay RAW: logits, log-scales and SH
 coefficients are stored as they are and activated in the forward pass. Mixed
 property dtypes are honored via a numpy structured dtype.
 
@@ -172,3 +172,51 @@ def load_gaussians(
     return GaussianModel.create(
         means, quats, log_scales, opacity_logits, sh, device=device
     )
+
+
+def save_gaussians(path: str, model: GaussianModel) -> None:
+    """Write a binary_little_endian 3DGS PLY (raw parameters; round-trips
+    `load_gaussians`, and byte for byte the file the JAX package's writer
+    makes of the same parameters)."""
+    n = model.num_gaussians
+    rest = model.sh.shape[1] - 1
+
+    names = (
+        ["x", "y", "z", "nx", "ny", "nz", "f_dc_0", "f_dc_1", "f_dc_2"]
+        + [f"f_rest_{i}" for i in range(rest * 3)]
+        + ["opacity"]
+        + [f"scale_{i}" for i in range(3)]
+        + [f"rot_{i}" for i in range(4)]
+    )
+
+    def host(x):
+        return x.detach().cpu().numpy().astype(np.float32, copy=False)
+
+    means, sh = host(model.means), host(model.sh)
+    ls, q = host(model.log_scales), host(model.quats)
+    zeros = np.zeros(n, np.float32)
+    cols: Dict[str, np.ndarray] = {
+        "x": means[:, 0], "y": means[:, 1], "z": means[:, 2],
+        "nx": zeros, "ny": zeros, "nz": zeros,
+        "f_dc_0": sh[:, 0, 0], "f_dc_1": sh[:, 0, 1], "f_dc_2": sh[:, 0, 2],
+        "opacity": host(model.opacity_logits),
+        "scale_0": ls[:, 0], "scale_1": ls[:, 1], "scale_2": ls[:, 2],
+        "rot_0": q[:, 0], "rot_1": q[:, 1], "rot_2": q[:, 2], "rot_3": q[:, 3],
+    }
+    for c in range(3):
+        for i in range(rest):
+            cols[f"f_rest_{c * rest + i}"] = sh[:, 1 + i, c]
+
+    # interleave columns → rows
+    flat = np.stack([cols[nm] for nm in names], axis=1).astype(np.float32, copy=False)
+
+    header = (
+        "ply\n"
+        "format binary_little_endian 1.0\n"
+        f"element vertex {n}\n"
+        + "".join(f"property float {nm}\n" for nm in names)
+        + "end_header\n"
+    )
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        flat.tofile(f)

@@ -4,6 +4,11 @@ Counterpart of gaussian_splat_tpu/models/gaussians.py. Parameters are stored
 RAW (log-scales, opacity logits, SH coefficients) and activated inside the
 forward pass. The level-of-detail and AABB filters of the JAX model arrive
 with the viewer's LoD slice.
+
+`GaussianModel.replace(...)` is the counterpart of the JAX model's `replace`:
+it returns a `GaussianView`, the same five leaves as plain (possibly
+non-leaf) tensors, which `render` takes like a model. The trainer uses it to
+mask SH bands inside a step while gradients still reach the parameters.
 """
 
 from __future__ import annotations
@@ -17,23 +22,13 @@ from gaussian_splat_tpu_torch._device import DeviceLike, resolve_device
 from gaussian_splat_tpu_torch.ops import sh as sh_ops
 
 
-class GaussianModel(nn.Module):
-    """Five raw leaves, each an `nn.Parameter` leading with N:
+LEAVES = ("means", "quats", "log_scales", "opacity_logits", "sh")
 
-      means (N,3) world positions; quats (N,4) wxyz (normalized in forward);
-      log_scales (N,3), scale = exp; opacity_logits (N,), opacity = sigmoid;
-      sh (N,K,3) SH coefficients, K = (degree+1)², band-ordered.
-    """
 
-    LEAVES = ("means", "quats", "log_scales", "opacity_logits", "sh")
+class _Splats:
+    """What `render` reads of a scene: the five leaves and their activations."""
 
-    def __init__(self, means, quats, log_scales, opacity_logits, sh):
-        super().__init__()
-        self.means = nn.Parameter(means)
-        self.quats = nn.Parameter(quats)
-        self.log_scales = nn.Parameter(log_scales)
-        self.opacity_logits = nn.Parameter(opacity_logits)
-        self.sh = nn.Parameter(sh)
+    LEAVES = LEAVES
 
     @property
     def num_gaussians(self) -> int:
@@ -55,6 +50,43 @@ class GaussianModel(nn.Module):
     @property
     def opacities(self) -> torch.Tensor:
         return torch.sigmoid(self.opacity_logits)
+
+    def replace(self, **leaves) -> "GaussianView":
+        """The same scene with some leaves replaced by other tensors."""
+        unknown = set(leaves) - set(LEAVES)
+        if unknown:
+            raise TypeError(f"not leaves of a GaussianModel: {sorted(unknown)}")
+        return GaussianView(
+            *(leaves.get(name, getattr(self, name)) for name in LEAVES)
+        )
+
+
+class GaussianView(_Splats):
+    """Five leaves held as plain tensors (see `GaussianModel.replace`)."""
+
+    def __init__(self, means, quats, log_scales, opacity_logits, sh):
+        self.means = means
+        self.quats = quats
+        self.log_scales = log_scales
+        self.opacity_logits = opacity_logits
+        self.sh = sh
+
+
+class GaussianModel(_Splats, nn.Module):
+    """Five raw leaves, each an `nn.Parameter` leading with N:
+
+      means (N,3) world positions; quats (N,4) wxyz (normalized in forward);
+      log_scales (N,3), scale = exp; opacity_logits (N,), opacity = sigmoid;
+      sh (N,K,3) SH coefficients, K = (degree+1)², band-ordered.
+    """
+
+    def __init__(self, means, quats, log_scales, opacity_logits, sh):
+        super().__init__()
+        self.means = nn.Parameter(means)
+        self.quats = nn.Parameter(quats)
+        self.log_scales = nn.Parameter(log_scales)
+        self.opacity_logits = nn.Parameter(opacity_logits)
+        self.sh = nn.Parameter(sh)
 
     # -- constructors -------------------------------------------------------
     @classmethod

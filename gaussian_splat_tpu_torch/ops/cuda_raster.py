@@ -1,121 +1,182 @@
-"""The CUDA forward raster kernel's wrapper: build, launch, count.
+"""The CUDA raster kernels' wrappers: build, launch, count, differentiate.
 
-Counterpart of the forward half of gaussian_splat_tpu/ops/pallas_raster.py
-(`_fwd_kernel`, `_raster_forward`, `render_tiled_pallas`). The kernel itself
-is csrc/raster_fwd.cu — see its header for the design and the rounding rules;
-its plain PyTorch version is `tile_raster.raster_forward_torch`, which takes
-the same arguments and returns the same images.
+Counterpart of gaussian_splat_tpu/ops/pallas_raster.py. Three hand-written
+kernels (csrc/, see each source's header for its design), each with a wrapper
+here and a plain PyTorch version of the same arguments in ops/tile_raster.py:
 
-`raster_forward` takes the plain version only for tensors that lie on the
-CPU. For CUDA tensors it launches the kernel or raises — build failure,
-refused launch, unsupported shape: nothing falls back. `launch_count` goes up
-by one exactly where the kernel is launched.
+  kernel      wrapper            plain version            replaces (TPU)
+  raster_fwd  raster_forward     raster_forward_torch     _fwd_kernel
+  raster_bwd  raster_backward    raster_backward_torch    _bwd_kernel
+  segsum      segment_sum        segment_sum_torch        _segsum_kernel
 
-The backward raises NotImplementedError: the backward kernels belong to the
-training slice. (On CPU tensors `render` uses the torch tile compositor, which
-autograd differentiates.)
+A wrapper takes the plain version only for tensors that lie on the CPU. For
+CUDA tensors it launches its kernel or raises — build failure, refused launch,
+unsupported shape: nothing falls back. `launch_counts[name]` goes up by one
+exactly where that kernel is launched.
+
+`rasterize` is the differentiable raster stage: one `torch.autograd.Function`
+spanning the (fused) pair gather and the compositing, as the reference's
+`raster_pairs_sorted` does. Forward = raster_fwd; backward = raster_bwd
+(per-pair gradient rows) → one stable sort of the pairs by depth rank (plain
+torch, as the reference leaves it to `lax.sort`) → segsum → the gradient of
+the rank-ordered table. Autograd's own transpose of `table[order]` takes that
+back to splat order. On CPU tensors the same Function runs the three plain
+versions, so the CPU tests exercise the explicit backward formulas.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gaussian_splat_tpu_torch import _build
 from gaussian_splat_tpu_torch.config import RenderConfig
 from gaussian_splat_tpu_torch.ops import tile_raster
+from gaussian_splat_tpu_torch.ops.binning import BinningResult
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 
-KERNEL = "raster_fwd"
+KERNELS = ("raster_fwd", "raster_bwd", "segsum")
 MAX_THREADS_PER_BLOCK = 1024
+ROW_COLS = tile_raster.TABLE_COLS  # gradient rows are laid out like table rows
 
-launch_count = 0  # kernel launches made by this process (see reset_launch_count)
+# kernel launches made by this process, per kernel (see reset_launch_counts)
+launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "raster_fwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
+    "raster_bwd": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "segsum": [_P] * 4 + [_I, _P],
+}
 
 
-def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(KERNEL)
-    fn = lib.raster_fwd_launch
+def _launcher(name: str):
+    """The C launch function of csrc/<name>.cu, its library built first if
+    need be."""
+    fn = getattr(_build.load_library(name), f"{name}_launch")
     if fn.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, i, p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, like=None) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if like is not None and x.device != like.device:
+        raise ValueError(f"{name} is on {x.device}, expected {like.device}")
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: needs 16-byte alignment (read as float4)")
 
 
-def _launch(
-    table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launch_count
+def _check_raster_inputs(kernel, table, pair_gauss, tile_offsets, tile_counts,
+                         width, height, config) -> int:
+    """Shared checks of the two raster kernels; returns the tile count."""
     tw, th = config.tile_width, config.tile_height
-    tx_n, ty_n = config.tiles_x(width), config.tiles_y(height)
-    num_tiles = tx_n * ty_n
     if tw * th > MAX_THREADS_PER_BLOCK:
         raise ValueError(
-            f"raster_fwd runs one thread per tile pixel: {tw}x{th} tiles exceed "
+            f"{kernel} runs one thread per tile pixel: {tw}x{th} tiles exceed "
             f"{MAX_THREADS_PER_BLOCK} threads per block"
         )
-    dev = table.device
-    _check("table", table, torch.float32, (table.shape[0], tile_raster.TABLE_COLS))
-    _check("pair_gauss", pair_gauss, torch.int32, (pair_gauss.shape[0],))
-    _check("tile_offsets", tile_offsets, torch.int32, (num_tiles,))
-    _check("tile_counts", tile_counts, torch.int32, (num_tiles,))
-    for name, x in (("pair_gauss", pair_gauss), ("tile_offsets", tile_offsets),
-                    ("tile_counts", tile_counts)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, table on {dev}")
-    if table.data_ptr() % 16:
-        raise ValueError("table: rows are read as float4, need 16-byte alignment")
-    if walked is not None:
-        _check("walked", walked, torch.int32, (num_tiles,))
+    num_tiles = config.num_tiles(width, height)
+    _check("table", table, torch.float32, (table.shape[0], ROW_COLS))
+    _check("pair_gauss", pair_gauss, torch.int32, (pair_gauss.shape[0],), table)
+    _check("tile_offsets", tile_offsets, torch.int32, (num_tiles,), table)
+    _check("tile_counts", tile_counts, torch.int32, (num_tiles,), table)
+    return num_tiles
 
-    lib = _library()
+
+def _launch_forward(
+    table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    num_tiles = _check_raster_inputs(
+        "raster_fwd", table, pair_gauss, tile_offsets, tile_counts, width, height, config
+    )
+    if walked is not None:
+        _check("walked", walked, torch.int32, (num_tiles,), table)
+    launch = _launcher("raster_fwd")
+    dev = table.device
     with torch.cuda.device(dev):
         rgbd = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
         t_final = torch.empty((height, width), dtype=torch.float32, device=dev)
-        err = lib.raster_fwd_launch(
+        err = launch(
             table.data_ptr(), pair_gauss.data_ptr(), tile_offsets.data_ptr(),
             tile_counts.data_ptr(), rgbd.data_ptr(), t_final.data_ptr(),
             walked.data_ptr() if walked is not None else None,
-            num_tiles, tx_n, tw, th, width, height,
-            config.alpha_clamp, config.transmittance_eps, int(config.sat_check),
-            torch.cuda.current_stream().cuda_stream,
+            num_tiles, config.tiles_x(width), config.tile_width, config.tile_height,
+            width, height, config.alpha_clamp, config.transmittance_eps,
+            int(config.sat_check), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
-    launch_count += 1
+    launch_counts["raster_fwd"] += 1
     return rgbd, t_final
 
 
-class _RasterForward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, pair_gauss, tile_offsets, tile_counts, width,
-                height, config, walked):
-        return _launch(
-            table, pair_gauss, tile_offsets, tile_counts, width, height,
-            config, walked,
+def _launch_backward(
+    table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final, d_rgbd,
+    d_t_final, width, height, config, walked,
+) -> torch.Tensor:
+    num_tiles = _check_raster_inputs(
+        "raster_bwd", table, pair_gauss, tile_offsets, tile_counts, width, height, config
+    )
+    for name, x in (("rgbd", rgbd), ("d_rgbd", d_rgbd)):
+        _check(name, x, torch.float32, (height, width, 4), table)
+    for name, x in (("t_final", t_final), ("d_t_final", d_t_final)):
+        _check(name, x, torch.float32, (height, width), table)
+    if walked is not None:
+        _check("walked", walked, torch.int32, (num_tiles,), table)
+    launch = _launcher("raster_bwd")
+    dev = table.device
+    num_rows = pair_gauss.shape[0]
+    with torch.cuda.device(dev):
+        rows = torch.empty((num_rows, ROW_COLS), dtype=torch.float32, device=dev)
+        err = launch(
+            table.data_ptr(), pair_gauss.data_ptr(), tile_offsets.data_ptr(),
+            tile_counts.data_ptr(),
+            walked.data_ptr() if walked is not None else None,
+            rgbd.data_ptr(), t_final.data_ptr(), d_rgbd.data_ptr(),
+            d_t_final.data_ptr(), rows.data_ptr(),
+            num_rows, num_tiles, config.tiles_x(width), config.tile_width,
+            config.tile_height, width, height, config.alpha_clamp,
+            torch.cuda.current_stream().cuda_stream,
         )
+    if err != 0:
+        raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
+    launch_counts["raster_bwd"] += 1
+    return rows
 
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("raster backward kernel: training slice")
+
+def _launch_segsum(rows, perm, rank_starts, n) -> torch.Tensor:
+    _check("rows", rows, torch.float32, (rows.shape[0], ROW_COLS))
+    _check("perm", perm, torch.int64, (rows.shape[0],), rows)
+    _check("rank_starts", rank_starts, torch.int32, (n + 1,), rows)
+    launch = _launcher("segsum")
+    dev = rows.device
+    with torch.cuda.device(dev):
+        out = torch.empty((n, ROW_COLS), dtype=torch.float32, device=dev)
+        err = launch(
+            rows.data_ptr(), perm.data_ptr(), rank_starts.data_ptr(),
+            out.data_ptr(), n, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
+    launch_counts["segsum"] += 1
+    return out
 
 
 def raster_forward(
@@ -127,18 +188,119 @@ def raster_forward(
     height: int,
     config: RenderConfig,
     # optional (T,) i32 out: pairs each tile walked before its early exit
-    # (chip_smoke.py counts the kernel's bound from it)
-    walked: torch.Tensor = None,
+    walked: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The raster stage: (rgbd (H,W,4), T_final (H,W)), no background applied.
+    """The forward raster kernel: (rgbd (H,W,4), T_final (H,W)), no background
+    applied, no autograd graph (`rasterize` is the differentiable stage).
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version, which walks whole segments and leaves `walked` alone."""
+    if not table.is_cuda:
+        with torch.no_grad():
+            return tile_raster.raster_forward_torch(
+                table, pair_gauss, tile_offsets, tile_counts, width, height, config
+            )
+    return _launch_forward(
+        table.detach(), pair_gauss, tile_offsets, tile_counts, width, height,
+        config, walked,
+    )
+
+
+def raster_backward(
+    table: torch.Tensor,
+    pair_gauss: torch.Tensor,
+    tile_offsets: torch.Tensor,
+    tile_counts: torch.Tensor,
+    rgbd: torch.Tensor,  # (H, W, 4) forward result
+    t_final: torch.Tensor,  # (H, W) forward result
+    d_rgbd: torch.Tensor,  # (H, W, 4) cotangent
+    d_t_final: torch.Tensor,  # (H, W) cotangent
+    width: int,
+    height: int,
+    config: RenderConfig,
+    walked: Optional[torch.Tensor] = None,  # (T,) i32 from the forward
+) -> torch.Tensor:
+    """The backward raster kernel: (B, 12) f32 gradient rows, one per pair in
+    the pair list's order, laid out like the table's rows (columns 10 and 11
+    zero). Unwalked and padding pairs get zero rows.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain version."""
     if not table.is_cuda:
-        return tile_raster.raster_forward_torch(
-            table, pair_gauss, tile_offsets, tile_counts, width, height, config
+        rows10 = tile_raster.raster_backward_torch(
+            table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
+            d_rgbd, d_t_final, width, height, config, walked=walked,
         )
-    return _RasterForward.apply(
-        table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked
+        return torch.nn.functional.pad(rows10, (0, ROW_COLS - rows10.shape[1]))
+    return _launch_backward(
+        table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
+        d_rgbd, d_t_final, width, height, config, walked,
+    )
+
+
+def segment_sum(
+    rows: torch.Tensor,  # (B, 12) f32 per-pair rows
+    perm: torch.Tensor,  # (B,) i64 `tile_raster.rank_permutation`
+    rank_starts: torch.Tensor,  # (N+1,) i32
+    n: int,
+) -> torch.Tensor:
+    """The segment-sum kernel: out[r] = Σ rows[perm[rank_starts[r] :
+    rank_starts[r+1]]], (N, 12) f32, summed in a fixed order.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain version."""
+    if not rows.is_cuda:
+        return tile_raster.segment_sum_torch(rows, perm, rank_starts, n)
+    return _launch_segsum(rows, perm, rank_starts, n)
+
+
+class _Raster(torch.autograd.Function):
+    """gather + raster as one differentiable stage; see the module docstring."""
+
+    @staticmethod
+    def forward(ctx, table, pair_gauss, tile_offsets, tile_counts, rank_starts,
+                width, height, config):
+        # the early exit is the kernel's; the plain forward walks everything
+        walked = torch.empty_like(tile_counts) if table.is_cuda else None
+        rgbd, t_final = raster_forward(
+            table, pair_gauss, tile_offsets, tile_counts, width, height,
+            config, walked=walked,
+        )
+        ctx.save_for_backward(
+            table, pair_gauss, tile_offsets, tile_counts, rank_starts, rgbd,
+            t_final, walked,
+        )
+        ctx.frame = (width, height, config)
+        return rgbd, t_final
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_rgbd, d_t_final):
+        (table, pair_gauss, tile_offsets, tile_counts, rank_starts, rgbd,
+         t_final, walked) = ctx.saved_tensors
+        width, height, config = ctx.frame
+        n = table.shape[0]
+        rows = raster_backward(
+            table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
+            d_rgbd.contiguous(), d_t_final.contiguous(), width, height, config,
+            walked=walked,
+        )
+        perm = tile_raster.rank_permutation(pair_gauss, rank_starts, n)
+        d_table = segment_sum(rows, perm, rank_starts, n)
+        return d_table, None, None, None, None, None, None, None
+
+
+def rasterize(
+    table: torch.Tensor,
+    binning: BinningResult,
+    width: int,
+    height: int,
+    config: RenderConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable raster stage, (rgbd (H,W,4), T_final (H,W)): the
+    kernels on CUDA tensors (or raises), their plain versions on CPU tensors;
+    the backward is the explicit one either way."""
+    return _Raster.apply(
+        table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
+        binning.rank_starts, width, height, config,
     )
 
 
@@ -150,11 +312,11 @@ def render_tiled_cuda(
     height: int,
     config: RenderConfig,
 ) -> Tuple[torch.Tensor, ...]:
-    """Full tiled render through the CUDA kernel; raises on CPU tensors."""
+    """Full tiled render through the CUDA kernels; raises on CPU tensors."""
     if not proj.means2d.is_cuda:
         raise ValueError(
             f'backend "cuda" needs CUDA tensors, got {proj.means2d.device}'
         )
     return tile_raster.render_tiled(
-        proj, colors, opacities, width, height, config, raster_fn=raster_forward
+        proj, colors, opacities, width, height, config, raster_fn=rasterize
     )

@@ -4,9 +4,10 @@ Counterpart of gaussian_splat_tpu/ops/render.py. Backend selection:
 
   * "reference":  the O(N·H·W) oracle (tests/small scenes; exact semantics)
   * "torch_tile": tile binning + segmented-cumsum compositing in plain torch
-                  (the CPU backend, differentiable by autograd, and the plain
-                  version the CUDA kernel is held against)
-  * "cuda":       tile binning + the hand-written CUDA forward raster kernel
+                  (the CPU backend, differentiated by autograd, and the plain
+                  version the CUDA kernels are held against)
+  * "cuda":       tile binning + the hand-written CUDA raster kernels, forward
+                  and backward (ops/cuda_raster.py)
   * "auto":       "cuda" for CUDA tensors, "torch_tile" for CPU tensors
 
 The choice follows where the model's tensors lie, never whether a build or a
@@ -80,10 +81,12 @@ def render(
 ) -> RenderOutput:
     """Render a scene on the device the model lies on.
 
-    On CPU tensors the result is differentiable w.r.t. every GaussianModel
-    parameter; the CUDA kernel's backward belongs to the training slice and
-    raises. `screen_offset` is an optional (N, 2) tensor added to the
-    projected 2D means (the densification criterion differentiates w.r.t. it)."""
+    The result is differentiable w.r.t. every GaussianModel parameter and
+    w.r.t. `screen_offset`, on either device: on CUDA tensors the raster
+    stage's gradient is the backward kernels', on CPU tensors autograd's
+    through the plain compositor. `screen_offset` is an optional (N, 2)
+    tensor added to the projected 2D means (the densification criterion
+    differentiates w.r.t. it)."""
     backend = config.backend
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")

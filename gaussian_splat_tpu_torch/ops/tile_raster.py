@@ -1,11 +1,13 @@
 """Tile rasterizer in plain torch: segmented log-space compositing over the pair list.
 
-Counterpart of gaussian_splat_tpu/ops/tile_raster.py, and the PLAIN VERSION of
-the CUDA forward raster kernel (ops/cuda_raster.py): it takes the same
-arguments — the rank-ordered per-splat table, the pair list and the per-tile
-segments — and returns the same images. It is the port's CPU backend,
-differentiable end-to-end by autograd, and on the GPU the yardstick the kernel
-is held against.
+Counterpart of gaussian_splat_tpu/ops/tile_raster.py, and the PLAIN VERSIONS of
+the three CUDA kernels (ops/cuda_raster.py). `raster_forward_torch` takes the
+forward kernel's arguments — the rank-ordered per-splat table, the pair list
+and the per-tile segments — and returns the same images; it is the port's CPU
+backend, differentiable end-to-end by autograd, and on the GPU the yardstick
+the kernel is held against. `raster_backward_torch` (per-pair gradient rows by
+the explicit formulas, not by autograd) and `segment_sum_torch` (rows summed
+per depth rank) are the plain versions of the two backward kernels.
 
 Per-tile transmittance is a segmented exclusive prefix product over the pair
 list, computed as exp(segmented-cumsum(log1p(−α))) as in the reference (with
@@ -177,6 +179,18 @@ def composite_pairs(
     return tiles_rgbd, torch.exp(la_tot)
 
 
+def image_to_tiles(
+    img: torch.Tensor, tx_n: int, ty_n: int, tw: int, th: int
+) -> torch.Tensor:
+    """(H, W, C) image → (T, tw·th, C) tile-major pixels, the ragged right and
+    bottom edges padded with zeros (the inverse of `tiles_to_image`)."""
+    h, w, c = img.shape
+    full = torch.zeros((ty_n * th, tx_n * tw, c), dtype=img.dtype, device=img.device)
+    full[:h, :w] = img
+    tiles = full.reshape(ty_n, th, tx_n, tw, c).permute(0, 2, 1, 3, 4)
+    return tiles.reshape(ty_n * tx_n, th * tw, c)
+
+
 def tile_batches(
     tile_offsets: torch.Tensor, tile_counts: torch.Tensor, max_batch_pairs: int
 ) -> Iterator[Tuple[int, int]]:
@@ -226,6 +240,140 @@ def raster_forward_torch(
     return rgbd, t_final
 
 
+def raster_backward_torch(
+    table: torch.Tensor,
+    pair_gauss: torch.Tensor,
+    tile_offsets: torch.Tensor,
+    tile_counts: torch.Tensor,
+    rgbd: torch.Tensor,  # (H, W, 4) forward result
+    t_final: torch.Tensor,  # (H, W) forward result
+    d_rgbd: torch.Tensor,  # (H, W, 4) cotangent
+    d_t_final: torch.Tensor,  # (H, W) cotangent
+    width: int,
+    height: int,
+    config: RenderConfig,
+    walked: Optional[torch.Tensor] = None,
+    max_batch_pairs: int = 1 << 15,
+) -> torch.Tensor:
+    """The raster stage's backward in plain torch, by the explicit formulas
+    (no autograd): the plain version of the CUDA kernel raster_bwd. Returns
+    (B, 10) float32 gradient rows of each PAIR's [mx,my,A,B,C,r,g,b,depth,op],
+    in the pair list's order; rows of padding pairs are zero.
+
+    Per pixel and pair i of a tile, front to back, with gC the four cotangents
+    of r,g,b,depth and gT the cotangent of T_final:
+
+        v_i = gC·c_i     w_i = α_i·T_i     Q = gC·C_total + gT·T_final
+        dα_i = v_i·T_i − (Q − Σ_{j≤i} v_j·w_j) / (1 − α_i)
+        dα_i = 0 unless keep_i and α_raw,i < α_clamp;   dσ_i = −dα_i·α_raw,i
+
+    and the row's gradient is the sum over the tile's pixels of gC·w_i
+    (channels), −dσ/op (opacity) and the chain through σ (centre and conic).
+    `walked` ((T,) pairs the forward walked before its early exit) shortens
+    each segment as the kernel does; None walks whole segments. Everything
+    after α is carried in float64: the running sums span every segment of a
+    batch and are re-based per segment, which cancels in float32."""
+    tw, th = config.tile_width, config.tile_height
+    tx_n, ty_n = config.tiles_x(width), config.tiles_y(height)
+    f64 = torch.float64
+
+    def tiles(img):
+        return image_to_tiles(img.to(f64), tx_n, ty_n, tw, th)
+
+    gc_t = tiles(d_rgbd)  # (T, npix, 4)
+    q_t = (gc_t * tiles(rgbd)).sum(-1) + (
+        tiles(d_t_final[..., None]) * tiles(t_final[..., None])
+    )[..., 0]  # (T, npix)
+
+    out = torch.zeros((pair_gauss.shape[0], 10), dtype=table.dtype, device=table.device)
+    for t0, t1 in tile_batches(tile_offsets, tile_counts, max_batch_pairs):
+        rows, local_tile, start, px, py, sigma = pair_pixel_sigma(
+            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
+        )
+        b = rows.shape[0]
+        if b == 0:
+            continue
+        tile = local_tile + t0
+        alpha, alpha_raw, keep = alpha_from_sigma(
+            sigma, rows[:, COL_OP : COL_OP + 1], rows[:, COL_BOUND : COL_BOUND + 1],
+            config.alpha_clamp,
+        )
+        if walked is not None:
+            index_in_tile = (
+                torch.arange(b, device=rows.device) + start - tile_offsets[tile]
+            )
+            live = (index_in_tile < walked[tile])[:, None]
+            keep = keep & live
+            alpha = torch.where(live, alpha, 0.0)
+
+        def seg_exclusive(x):  # per-segment exclusive prefix sum along pairs
+            excl = torch.cumsum(x, dim=0) - x
+            first = (tile_offsets[t0:t1].to(torch.int64) - start).clamp(0, b - 1)
+            return excl - excl[first][local_tile]
+
+        alpha = alpha.to(f64)
+        la = torch.log1p(-alpha)
+        t_before = torch.exp(seg_exclusive(la))  # (b, npix) T before pair i
+        w = alpha * t_before
+
+        chans = rows[:, COL_R : COL_DEPTH + 1].to(f64)  # (b, 4)
+        gc = gc_t[tile]  # (b, npix, 4)
+        v = (gc * chans[:, None, :]).sum(-1)
+        contrib = v * w
+        incl = seg_exclusive(contrib) + contrib
+        da = v * t_before - (q_t[tile] - incl) / (1.0 - alpha)
+        grad_live = keep & (alpha_raw < config.alpha_clamp)
+        dsigma = torch.where(grad_live, -da * alpha_raw.to(f64), 0.0)
+
+        dx = (px - rows[:, COL_MX : COL_MX + 1]).to(f64)
+        dy = (py - rows[:, COL_MY : COL_MY + 1]).to(f64)
+        s1 = dsigma.sum(1)
+        sx, sy = (dsigma * dx).sum(1), (dsigma * dy).sum(1)
+        sxx = (dsigma * dx * dx).sum(1)
+        sxy = (dsigma * dx * dy).sum(1)
+        syy = (dsigma * dy * dy).sum(1)
+        A, B, C, op = (rows[:, c].to(f64) for c in (COL_A, COL_B, COL_C, COL_OP))
+        d_op = torch.where(op > 0.0, -s1 / torch.where(op > 0.0, op, 1.0), 0.0)
+        d_chans = (gc * w[..., None]).sum(1)  # (b, 4)
+        out[start : start + b] = torch.stack(
+            [-(A * sx + B * sy), -(C * sy + B * sx), 0.5 * sxx, sxy, 0.5 * syy,
+             *d_chans.unbind(1), d_op],
+            dim=1,
+        ).to(table.dtype)
+    return out
+
+
+@torch.no_grad()
+def rank_permutation(
+    pair_gauss: torch.Tensor, rank_starts: torch.Tensor, n: int
+) -> torch.Tensor:
+    """(B,) int64 stable sort of the pair list by depth rank: position i of
+    the sorted order holds pair `perm[i]`. Padding rows — those past the
+    rank_starts[n] real pairs — are keyed to n and sort to the end; within a
+    rank the pairs keep their tile order, so the order is fixed."""
+    b = pair_gauss.shape[0]
+    real = torch.arange(b, device=pair_gauss.device) < rank_starts[n]
+    keys = torch.where(real, pair_gauss, n)
+    return torch.sort(keys, stable=True).indices
+
+
+def segment_sum_torch(
+    rows: torch.Tensor,  # (B, C) per-pair rows, in the pair list's order
+    perm: torch.Tensor,  # (B,) `rank_permutation`
+    rank_starts: torch.Tensor,  # (N+1,)
+    n: int,
+) -> torch.Tensor:
+    """out[r] = Σ rows[perm[rank_starts[r] : rank_starts[r+1]]], (N, C): the
+    plain version of the CUDA kernel segsum."""
+    b = rows.shape[0]
+    position = torch.arange(b, dtype=rank_starts.dtype, device=rows.device)
+    # rank whose slice holds each sorted position; n for the padding rows
+    rank = torch.searchsorted(rank_starts[1:].contiguous(), position, right=True)
+    out = torch.zeros((n + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    out.index_add_(0, rank.clamp_max(n), rows[perm])
+    return out[:n]
+
+
 RasterFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -236,19 +384,23 @@ def render_tiled(
     width: int,
     height: int,
     config: RenderConfig,
-    raster_fn: RasterFn = raster_forward_torch,
+    raster_fn: Optional[RasterFn] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BinningStats]:
     """Full tiled render: bin → per-splat table → raster → background.
     Returns (image (H,W,3), T_final (H,W), depth (H,W), BinningStats).
 
-    `raster_fn` is the raster stage: this module's plain version by default,
-    the CUDA kernel's wrapper when called through `cuda_raster`."""
+    `raster_fn(table, binning, width, height, config)` is the raster stage:
+    by default this module's plain forward, differentiated by autograd; called
+    through `cuda_raster`, the kernels behind their autograd.Function."""
     binning = bin_gaussians(proj, width, height, config, opacities=opacities)
     table = build_splat_table(proj, colors, opacities, binning.order, config)
-    rgbd, t_final = raster_fn(
-        table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
-        width, height, config,
-    )
+    if raster_fn is None:
+        rgbd, t_final = raster_forward_torch(
+            table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
+            width, height, config,
+        )
+    else:
+        rgbd, t_final = raster_fn(table, binning, width, height, config)
     depth = rgbd[..., 3]
     image = rgbd[..., :3]
     if any(config.background):  # over black there is nothing to add

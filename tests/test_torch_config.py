@@ -1,11 +1,13 @@
-"""Port RenderConfig vs the JAX RenderConfig: shared defaults and capacities."""
+"""Port RenderConfig and TrainConfig vs the JAX ones: shared defaults and capacities."""
 
 import dataclasses
 
 import pytest
 
 from gaussian_splat_tpu.config import RenderConfig as JaxConfig
+from gaussian_splat_tpu.config import TrainConfig as JaxTrainConfig
 from gaussian_splat_tpu_torch.config import RenderConfig as TorchConfig
+from gaussian_splat_tpu_torch.config import TrainConfig as TorchTrainConfig
 
 TPU_ONLY = {
     "tiles_per_program", "dma_chunks", "exact_vjp",
@@ -50,3 +52,14 @@ def test_capacities_equal_on_grid(kwargs):
         assert tc.num_tiles(w, h) == jc.num_tiles(w, h)
         assert tc.tiles_x(w) == jc.tiles_x(w)
         assert tc.tiles_y(h) == jc.tiles_y(h)
+
+
+def test_train_config_has_the_same_fields_in_the_same_order():
+    assert [f.name for f in dataclasses.fields(TorchTrainConfig)] == [
+        f.name for f in dataclasses.fields(JaxTrainConfig)
+    ]
+
+
+@pytest.mark.parametrize("name", [f.name for f in dataclasses.fields(TorchTrainConfig)])
+def test_train_config_default_equal(name):
+    assert getattr(TorchTrainConfig(), name) == getattr(JaxTrainConfig(), name)

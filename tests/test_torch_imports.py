@@ -65,8 +65,9 @@ def test_pyproject_ships_the_port_and_its_kernel_sources():
         data = tomllib.load(f)
     assert "gaussian_splat_tpu*" in data["tool"]["setuptools"]["packages"]["find"]["include"]
     pkg_data = data["tool"]["setuptools"]["package-data"]["gaussian_splat_tpu_torch"]
-    assert "csrc/*.cu" in pkg_data
-    assert (PKG / "csrc" / "raster_fwd.cu").exists()
+    assert "csrc/*.cu" in pkg_data and "csrc/*.cuh" in pkg_data
+    for name in ("raster_fwd.cu", "raster_bwd.cu", "segsum.cu", "raster_common.cuh"):
+        assert (PKG / "csrc" / name).exists(), name
     assert "gaussian_splat_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
 
 
@@ -100,8 +101,27 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         _build.load_library("raster_fwd")
-    assert _build.kernel_names() == ["raster_fwd"]
-    assert _build.library_path("raster_fwd").name.startswith("raster_fwd-")
+    assert _build.kernel_names() == ["raster_bwd", "raster_fwd", "segsum"]
+    for name in _build.kernel_names():
+        with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+            _build.load_library(name)
+        assert _build.library_path(name).name.startswith(f"{name}-")
+
+
+def test_library_name_follows_the_shared_header(monkeypatch, tmp_path):
+    """An edited header must rebuild every kernel that includes it."""
+    import shutil
+
+    from gaussian_splat_tpu_torch import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    before = {n: _build.library_path(n).name for n in _build.kernel_names()}
+    with open(csrc / "raster_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n).name for n in _build.kernel_names()}
+    assert all(before[n] != after[n] for n in ("raster_fwd", "raster_bwd"))
 
 
 def test_default_device_raises_without_a_gpu():

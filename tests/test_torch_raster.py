@@ -184,9 +184,9 @@ def test_cpu_tensors_never_reach_the_cuda_kernel(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("CUDA launch attempted for CPU tensors")
 
-    monkeypatch.setattr(cuda_raster, "_launch", boom)
+    monkeypatch.setattr(cuda_raster, "_launch_forward", boom)
     monkeypatch.setattr(cuda_raster._build, "load_library", boom)
-    cuda_raster.reset_launch_count()
+    cuda_raster.reset_launch_counts()
     leaves, width, height = _scene("random", 0)
     model = convert.model_from_numpy(leaves, device="cpu")
     cam = convert.camera_from_numpy(
@@ -196,13 +196,13 @@ def test_cpu_tensors_never_reach_the_cuda_kernel(monkeypatch):
     cam.viewmat[2, 3] = 4.0
     out = torch_render(model, cam, TorchConfig(backend="auto"))
     assert out.image.shape == (height, width, 3) and float(out.alpha.detach().max()) > 0.1
-    assert cuda_raster.launch_count == 0
+    assert cuda_raster.launch_counts["raster_fwd"] == 0
     # the wrapper itself hands CPU tensors to the plain version
     proj, colors, op, b, _, _ = _jax_stage(leaves, width, height)
     cfg, args, _, (rgbd_img, _) = _torch_stage(proj, colors, op, b, width, height)
     got = cuda_raster.raster_forward(*args, width, height, cfg)
     np.testing.assert_array_equal(got[0].numpy(), rgbd_img.numpy())
-    assert cuda_raster.launch_count == 0
+    assert cuda_raster.launch_counts["raster_fwd"] == 0
 
 
 def test_backend_cuda_on_cpu_tensors_raises():
@@ -217,6 +217,46 @@ def test_backend_cuda_on_cpu_tensors_raises():
         torch_render(model, cam, TorchConfig(backend="pallas"))
 
 
-def test_cuda_backward_is_not_routed_to_the_plain_version():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        cuda_raster._RasterForward.backward(None, None, None)
+def test_cuda_backward_is_not_routed_to_the_plain_version(monkeypatch):
+    """CUDA tensors never reach the plain backward or the plain segment sum:
+    each wrapper sends them to its kernel's launcher (which, with no GPU
+    here, is a stub that records the call), and CPU tensors never reach a
+    launcher."""
+    calls = []
+
+    def plain(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    def launcher(name):
+        def launch(*a, **k):
+            calls.append(name)
+            return "launched"
+        return launch
+
+    class OnCuda:  # stands for a tensor that lies on the GPU
+        is_cuda = True
+
+    monkeypatch.setattr(tile_raster, "raster_backward_torch", plain)
+    monkeypatch.setattr(tile_raster, "segment_sum_torch", plain)
+    monkeypatch.setattr(cuda_raster, "_launch_backward", launcher("raster_bwd"))
+    monkeypatch.setattr(cuda_raster, "_launch_segsum", launcher("segsum"))
+    x = OnCuda()
+    assert cuda_raster.raster_backward(x, x, x, x, x, x, x, x, 8, 8, TorchConfig()) == "launched"
+    assert cuda_raster.segment_sum(x, x, x, 4) == "launched"
+    assert calls == ["raster_bwd", "segsum"]
+
+    # and the other way round: CPU tensors take the plain versions, no launch
+    monkeypatch.undo()
+    calls.clear()
+    monkeypatch.setattr(cuda_raster, "_launcher", launcher("build"))
+    cuda_raster.reset_launch_counts()
+    leaves, width, height = _scene("random", 0)
+    model = convert.model_from_numpy(leaves, device="cpu")
+    cam = convert.camera_from_numpy(
+        np.eye(4, dtype=np.float32), 80.0, 80.0,
+        width / 2, height / 2, width, height, device="cpu",
+    )
+    cam.viewmat[2, 3] = 4.0
+    torch_render(model, cam, TorchConfig()).image.mean().backward()
+    assert model.means.grad is not None and not calls
+    assert cuda_raster.launch_counts == dict.fromkeys(cuda_raster.KERNELS, 0)
