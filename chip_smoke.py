@@ -18,7 +18,10 @@ line:
   train_path same scene through fit (one view) and fit_multiview_adc (four
              views, a densify, a checkpoint and a resume), with the step's
              time and its split by stage
-  kernels    each kernel vs its plain version: errors, times, bound, launches
+  kernels    each kernel vs its plain version: errors, times, bound, launches;
+             the raster kernels' own count of kept steps vs the plain count
+             (their per-warp cull dropped nothing) and the share of
+             (warp, pair)s the cull let through
   cli        `cli render` and `cli train` as subprocesses
   last line  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -132,9 +135,22 @@ def bench_scene():
     return model, camera
 
 
+def degenerate_conics(table):
+    """The table with every third row's B raised to 1.2·√(A·C) (det < 0) and
+    every seventh's to √(A·C) (det = 0 up to rounding): rows that no
+    projection makes, whose extent must come out infinite."""
+    table = table.clone()
+    root = torch.sqrt(table[:, tile_raster.COL_A] * table[:, tile_raster.COL_C])
+    table[::3, tile_raster.COL_B] = 1.2 * root[::3]
+    table[::7, tile_raster.COL_B] = root[::7]
+    return table
+
+
 def small_scenes():
-    """(name, model, camera, config): the two small shapes of the JAX kernel
-    tests, and one with other tiles."""
+    """(name, model, camera, config, tamper): the two small shapes of the JAX
+    kernel tests, one with other tiles, and three aimed at the raster kernels'
+    layout rule and per-warp cull. `tamper`, where not None, rewrites the
+    splat table before the kernels and their plain versions see it."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rand = GaussianModel.random(
         gen, 120, sh_degree=1, extent=1.2, scale_range=(0.02, 0.1), device=DEVICE
@@ -150,17 +166,36 @@ def small_scenes():
         device=DEVICE,
     )
 
+    # one splat far larger than a tile (its extent covers every warp of every
+    # tile it is listed in) in front of small ones
+    m = 60
+    huge = GaussianModel.create(
+        means=np.concatenate([[[0.0, 0.0, -0.5]], 0.8 * rng.randn(m, 3)]),
+        quats=np.tile([1.0, 0.0, 0.0, 0.0], (m + 1, 1)),
+        log_scales=np.concatenate([np.full((1, 3), np.log(1.5)),
+                                   np.full((m, 3), np.log(0.05))]),
+        opacity_logits=np.concatenate([[-1.0], np.full((m,), 1.0)]),
+        sh=rng.uniform(-0.5, 1.5, (m + 1, 1, 3)),
+        device=DEVICE,
+    )
+
     def cam(w, h):
         return Camera.from_lookat(
             (0, 0, -4), (0, 0, 0), (0, 1, 0), 60.0, w, h, device=DEVICE
         )
 
     return [
-        ("random120_96x64", rand, cam(96, 64), RenderConfig()),
-        ("deep200_64x64", deep, cam(64, 64), RenderConfig()),
+        ("random120_96x64", rand, cam(96, 64), RenderConfig(), None),
+        ("deep200_64x64", deep, cam(64, 64), RenderConfig(), None),
         # another tile shape, and an image whose right and bottom edges are ragged
         ("random120_100x70_tiles16x16", rand, cam(100, 70),
-         RenderConfig(tile_width=16, tile_height=16)),
+         RenderConfig(tile_width=16, tile_height=16), None),
+        # tile_w % 8 != 0: the row-major branch of the layout rule (200 threads
+        # a block in raster_fwd, 224 in raster_bwd)
+        ("random120_100x70_tiles20x10", rand, cam(100, 70),
+         RenderConfig(tile_width=20, tile_height=10), None),
+        ("huge1_small60_96x64", huge, cam(96, 64), RenderConfig(), None),
+        ("random120_96x64_det_le_0", rand, cam(96, 64), RenderConfig(), degenerate_conics),
     ]
 
 
@@ -217,10 +252,13 @@ def count_steps(args, walked, width, height, config):
     """The (pixel, pair) steps that this run's data asks of raster_fwd, counted
     in plain torch over the pairs each tile walked before it left its loop
     (`walked`, read back from the kernel) and the pixels inside the image:
-    (all steps, steps that pass the keep test)."""
+    (all steps, steps that pass the keep test, (warp, pair)s that the plain
+    mirror of the kernels' per-warp cull lets through)."""
     table, pair_gauss, tile_offsets, tile_counts = args
     tx_n = config.tiles_x(width)
-    steps = kept = 0
+    tw, th = config.tile_width, config.tile_height
+    rects = torch.from_numpy(tile_raster.tile_warp_rects(tw, th)).to(table.device)
+    steps = kept = live_warp_pairs = 0
     for t0, t1 in tile_raster.tile_batches(tile_offsets, tile_counts, 1 << 16):
         rows, local_tile, start, px, py, sigma = tile_raster.pair_pixel_sigma(
             table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
@@ -233,7 +271,15 @@ def count_steps(args, walked, width, height, config):
         bound = rows[:, tile_raster.COL_BOUND : tile_raster.COL_BOUND + 1]
         steps += int(live.sum())
         kept += int((live & (sigma >= 0.0) & (sigma <= bound)).sum())
-    return steps, kept
+        # each warp's pixel-centre rectangle in the pair's tile: (b, warps)
+        tx0 = ((tile % tx_n) * tw)[:, None]
+        ty0 = (torch.div(tile, tx_n, rounding_mode="floor") * th)[:, None]
+        corners = (tx0 + rects[:, 0], tx0 + rects[:, 1], ty0 + rects[:, 2], ty0 + rects[:, 3])
+        miss = tile_raster.extent_misses_rect(
+            tile_raster.splat_extent_torch(rows)[:, None, :],
+            *(v.to(torch.float32) + 0.5 for v in corners))
+        live_warp_pairs += int((~miss & (index_in_tile < walked[tile])[:, None]).sum())
+    return steps, kept, live_warp_pairs
 
 
 def grad_errors(got, want, floor=0.0):
@@ -258,12 +304,16 @@ def bound_fields(n_bytes, flops):
 
 
 @torch.no_grad()
-def compare_kernels(name, model, camera, config, reps):
+def compare_kernels(name, model, camera, config, reps, tamper=None):
     """The three kernels vs their plain versions on one frame's binning:
     {kernel name: case}. The backward kernels get seeded cotangents of unit
-    scale, and are run twice to show that their results are bitwise equal."""
+    scale, and are run twice to show that their results are bitwise equal.
+    Both raster kernels also count their kept steps and the (warp, pair)s
+    their cull let through; the first must equal the plain count."""
     w, h = camera.width, camera.height
     _, binning, args = raster_inputs(model, camera, config)
+    if tamper is not None:
+        args = (tamper(args[0]), *args[1:])
     table, pair_gauss, tile_offsets, tile_counts = args
     rank_starts = binning.rank_starts
     n = model.num_gaussians
@@ -272,7 +322,11 @@ def compare_kernels(name, model, camera, config, reps):
 
     # -- raster_fwd --------------------------------------------------------
     walked = torch.zeros_like(tile_counts)
-    rgbd, t_final = cuda_raster.raster_forward(*args, w, h, config, walked=walked)
+    n_tiles = tile_counts.numel()
+    counted = torch.zeros((n_tiles, 2), dtype=torch.int32, device=DEVICE)
+    rgbd, t_final = cuda_raster.raster_forward(
+        *args, w, h, config, walked=walked, counters=counted)
+    plain_rgbd, plain_t = cuda_raster.raster_forward(*args, w, h, config)
     want = tile_raster.raster_forward_torch(*args, w, h, config)
     torch.cuda.synchronize()
     got_all = torch.cat([rgbd, t_final[..., None]], dim=-1)
@@ -280,11 +334,30 @@ def compare_kernels(name, model, camera, config, reps):
     check(bool(torch.isfinite(got_all).all()), f"{name}: raster_fwd output not finite")
     err = (got_all - want_all).abs()
     over = (err > ATOL + RTOL * want_all.abs()).any(dim=-1)
-    steps, kept_steps = count_steps(args, walked, w, h, config)
-    n_tiles = tile_counts.numel()
+    steps, kept_steps, live_plain = count_steps(args, walked, w, h, config)
+    warps = -(-config.tile_pixels // 32)
+    warp_pairs = int(walked.sum()) * warps
+
+    def cull_fields(kernel, counted):
+        """What a kernel counted, held against the plain count."""
+        kept, live = (int(v) for v in counted.sum(dim=0, dtype=torch.int64))
+        check(kept == kept_steps,
+              f"{name}: {kernel} counted {kept} kept steps, the plain count is "
+              f"{kept_steps}: its cull dropped or invented steps")
+        check(live == live_plain,
+              f"{name}: {kernel}'s cull let {live} (warp, pair)s through, its plain "
+              f"mirror tile_raster.splat_extent_torch {live_plain}")
+        return {
+            "kept_steps_counted": kept, "warp_pairs": warp_pairs,
+            "live_warp_pairs": live, "live_warp_pairs_plain": live_plain,
+            "live_warp_pair_share": live / warp_pairs if warp_pairs else 0.0,
+        }
+
+    check(torch.equal(rgbd, plain_rgbd) and torch.equal(t_final, plain_t),
+          f"{name}: raster_fwd with and without counters differ")
     fwd = {
         **shape, "walked_pairs": int(walked.sum()), "steps": steps,
-        "kept_steps": kept_steps,
+        "kept_steps": kept_steps, **cull_fields("raster_fwd", counted),
         "max_abs_err": float(err.max()), "n_over": int(over.sum()),
         "kernel_ms": time_ms(lambda: cuda_raster.raster_forward(*args, w, h, config), reps),
         "plain_ms": time_ms(
@@ -302,7 +375,8 @@ def compare_kernels(name, model, camera, config, reps):
     d_rgbd = torch.randn((h, w, 4), generator=gen, device=DEVICE)
     d_t = torch.randn((h, w), generator=gen, device=DEVICE)
     bwd_args = (*args, rgbd, t_final, d_rgbd, d_t, w, h, config)
-    rows = cuda_raster.raster_backward(*bwd_args, walked=walked)
+    counted = torch.zeros_like(counted)
+    rows = cuda_raster.raster_backward(*bwd_args, walked=walked, counters=counted)
     rows_again = cuda_raster.raster_backward(*bwd_args, walked=walked)
     t0 = time.perf_counter()
     want_rows = tile_raster.raster_backward_torch(*bwd_args, walked=walked)
@@ -314,6 +388,7 @@ def compare_kernels(name, model, camera, config, reps):
     num_rows = rows.shape[0]
     bwd = {
         **shape, "rows": num_rows, "steps": steps, "kept_steps": kept_steps,
+        **cull_fields("raster_bwd", counted),
         "max_abs_err": bwd_err, "n_over": bwd_over,
         "bitwise_repeatable": bool(torch.equal(rows, rows_again)),
         "pad_columns_and_rows_zero": tail_clean,
@@ -368,8 +443,8 @@ def compare_kernels(name, model, camera, config, reps):
 def phase_kernels(model, camera, config):
     """{kernel name: [case, ...]} over the small shapes and the full frame."""
     runs = [
-        compare_kernels(name, m, cam, cfg, reps=5)
-        for name, m, cam, cfg in small_scenes()
+        compare_kernels(name, m, cam, cfg, reps=5, tamper=tamper)
+        for name, m, cam, cfg, tamper in small_scenes()
     ]
     runs.append(compare_kernels("bench_full", model, camera, config, reps=10))
     cases = {k: [run[k] for run in runs] for k in cuda_raster.KERNELS}
@@ -431,7 +506,7 @@ def phase_no_fallback():
     """On CUDA tensors a training step whose kernel cannot be built raises,
     whichever of the three kernels it is; nothing gives way to a plain version
     or to autograd through one."""
-    _, model, cam, cfg = small_scenes()[0]
+    _, model, cam, cfg, _ = small_scenes()[0]
     real = _build.load_library
     raised = {}
     for broken in cuda_raster.KERNELS:
@@ -757,6 +832,8 @@ def main():
                 "ms": full["kernel_ms"], "kernel_ms": full["kernel_ms"],
                 "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                 "bound_by": full["bound_by"], "library_ms": full.get("library_ms"),
+                "share_of_bound": full["bound_ms"] / full["kernel_ms"],
+                "live_warp_pair_share": full.get("live_warp_pair_share"),
                 "tolerance": (
                     {"atol": ATOL, "rtol": RTOL} if name == "raster_fwd"
                     else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
@@ -764,6 +841,8 @@ def main():
                 "gpu": smi, "cases": cases[name],
             })
         print(json.dumps({"kernels": kernels}), flush=True)
+        check(all(k["share_of_bound"] <= 1.0 for k in kernels),
+              "a kernel reads faster than its bound: the bound's count is wrong")
         check(all(k["launches_train_path"] > 0 for k in kernels),
               "a kernel was never launched on the training path")
         check(kernels[0]["launches_main_path"] > 0,

@@ -27,8 +27,10 @@ class RenderConfig:
     floating-point tolerance."""
 
     # Tiling -----------------------------------------------------------------
-    tile_width: int = 32  # pixels per tile in x: one warp spans one tile row
-    tile_height: int = 16  # pixels per tile in y (32×16 = 512 threads a block)
+    tile_width: int = 32  # pixels per tile in x
+    tile_height: int = 16  # pixels per tile in y (32×16 = 512 threads a block:
+    #   16 warps of 8×4 pixels each when the width divides by 8 and the height
+    #   by 4, else 32 row-major pixels a warp; csrc/raster_common.cuh)
     chunk_size: int = 128  # rounding unit of the pair budget (kept so budgets
     #   equal the reference's; the CUDA kernel has no alignment rule)
 

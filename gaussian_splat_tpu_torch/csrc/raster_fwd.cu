@@ -39,30 +39,51 @@
 // (one expf among them) only where the keep test passes. Of 2.46M pairs x 512
 // pixels the early exit leaves 0.74 G steps inside the image, of which 0.11 G
 // pass the test: 8.2 GFLOP, ~0.12 ms at 67 TFLOP/s. So it is bound by FP32
-// throughput, not by memory. Measured with chip_smoke.py on an NVIDIA H100
-// 80GB HBM3 (700 W limit): about 0.9 ms a launch (14 % of that bound's rate),
-// 40 registers, 12 KB of shared memory. This simple design does nothing about
-// the gap yet: 85 % of the steps fail the keep test, so most of the time goes
-// to sigma evaluations that end in nothing. A later change could skip warps
-// whose 32 pixels all fail a splat's bound, use packed half2 math for the
-// accumulation, or use finer tiles.
+// throughput, not by memory, and what it really pays for is instruction slots: 85 %
+// of the steps fail the keep test, and a 32x1 pixel row per warp with sigma
+// evaluated before anything could be skipped spent most of 0.85 ms on them.
+//
+// What the design does about it (raster_common.cuh): a warp is an 8x4 pixel
+// block, so a splat of a few pixels' radius meets few of the tile's 16 warps;
+// while a batch is staged one thread per pair also writes the splat's
+// conservative extent (one float4), and in the pair loop a warp tests 32
+// staged pairs at once, each lane one pair's extent against the warp's
+// rectangle, and walks only the pairs of the resulting mask. A pair the warp
+// cannot touch costs it a fraction of an instruction, not three loads and
+// sigma. The mask is warp-uniform (no divergence) and the cull may only skip
+// steps the keep test would have failed: the keep decision itself is still
+// splat_keep(splat_sigma(...)), and a pixel's own sequence of operations is
+// unchanged, so the images are bitwise those of the row-per-warp kernel.
+// BATCH and the block-wide exit are as before, so `walked` and T_final are
+// the same work. Blocks are launched with whole warps (the tile's pixels
+// rounded up to 32 threads), as the cull's ballot needs.
+// Measured with chip_smoke.py on an NVIDIA H100 80GB HBM3 (700.00 W limit), 1M
+// splats / 1920x1080: 0.50 ms a launch (25 % of that bound's rate) where the
+// row-per-warp kernel took 0.85 ms in the same call; 33 % of the
+// (warp, pair)s pass the cull; 47 registers, 16 KB of shared memory, no
+// spills, two 512-thread blocks per SM. What is left is the instruction count
+// of the live (warp, pair)s and that occupancy (PERF.md, sections 6 and 7).
 //
 // `walked` (optional, may be null) returns the pairs each block walked before
 // it left its loop. The backward kernel (raster_bwd.cu) takes it as its
 // segment length, so that it stops where this kernel stopped, and
 // chip_smoke.py needs it to state the bound above: the work depends on the
 // data through the early exit, and only the kernel knows where each block
-// stopped.
+// stopped. `counters` (optional, may be null; (T, 2) int32, zeroed by the
+// caller) receives per tile the kept steps inside the image and the
+// (warp, pair)s that were not culled: chip_smoke.py holds the first against
+// its own count to show that the cull dropped nothing.
 //
-// The per-(pixel, splat) alpha code and the row gather live in
-// raster_common.cuh, shared with the backward kernel.
+// The layout, the staging, the cull and the per-(pixel, splat) alpha code
+// live in raster_common.cuh, shared with the backward kernel.
 
 #include "raster_common.cuh"
 
 #define BATCH 256        // pairs staged per shared-memory batch
 
 // table row: [mx, my, A, B | C, r, g, b | depth, op, bound, pad]
-extern "C" __global__ void raster_fwd_kernel(
+template <bool COUNT>
+__global__ void __launch_bounds__(1024) raster_fwd_kernel(
     const float4* __restrict__ table,      // (N, 3) float4
     const int* __restrict__ pair_gauss,    // (B,)
     const int* __restrict__ tile_offsets,  // (T,)
@@ -70,40 +91,54 @@ extern "C" __global__ void raster_fwd_kernel(
     float4* __restrict__ out_rgbd,         // (H, W) float4: r, g, b, depth
     float* __restrict__ out_tfinal,        // (H, W)
     int* __restrict__ walked,              // (T,) pairs walked per tile, or null
+    int* __restrict__ counters,            // (T, 2), only read when COUNT
     int tiles_x, int tile_w, int tile_h, int width, int height,
     float alpha_clamp, float trans_eps, int sat_check)
 {
     __shared__ float4 rows[BATCH * ROW_F4];
+    __shared__ float4 ext[BATCH];
 
     const int t = blockIdx.x;
-    const int p = threadIdx.x;
-    const int ix = (t % tiles_x) * tile_w + p % tile_w;
-    const int iy = (t / tiles_x) * tile_h + p / tile_w;
-    const bool inside = ix < width && iy < height;
+    const int p = threadIdx.x;             // blockDim.x = tile pixels rounded up to 32
+    const int tx0 = (t % tiles_x) * tile_w;
+    const int ty0 = (t / tiles_x) * tile_h;
+    int lx, ly;
+    tile_pixel(p, tile_w, tile_h, &lx, &ly);
+    const int ix = tx0 + lx;
+    const int iy = ty0 + ly;
+    const bool inside = p < tile_w * tile_h && ix < width && iy < height;
     const float px = (float)ix + 0.5f;
     const float py = (float)iy + 0.5f;
+    const WarpRect rect = warp_rect(p, tile_w, tile_h, tx0, ty0);
 
     const int off = tile_offsets[t];
     const int cnt = tile_counts[t];
 
     float T = 1.0f, r = 0.0f, g = 0.0f, b = 0.0f, d = 0.0f;
     int done_pairs = 0;
+    int n_kept = 0, n_live = 0;
 
     for (int base = 0; base < cnt; base += BATCH) {
         const int nb = min(BATCH, cnt - base);
-        // cooperative fused gather: nb rows of three float4 each
-        gather_rows(rows, table, pair_gauss, off + base, nb);
+        // cooperative fused gather: nb rows and their extents
+        stage_pairs(rows, ext, table, pair_gauss, off + base, nb);
         __syncthreads();
 
-        for (int j = 0; j < nb; ++j) {
-            const float4 f0 = rows[j * ROW_F4 + 0];  // mx, my, A, B
-            const float4 f1 = rows[j * ROW_F4 + 1];  // C, r, g, b
-            const float4 f2 = rows[j * ROW_F4 + 2];  // depth, op, bound, pad
-            float dx, dy;
-            const float sigma = splat_sigma(px, py, f0, f1.x, &dx, &dy);
-            if (splat_keep(sigma, f2.z)) {
-                const float alpha = fminf(splat_alpha_raw(f2.y, sigma), alpha_clamp);
-                composite_step(alpha, f1, f2.x, &T, &r, &g, &b, &d);
+        for (int j0 = 0; j0 < nb; j0 += 32) {
+            unsigned live = warp_live_pairs(ext, j0, nb, rect);
+            if (COUNT) n_live += __popc(live);
+            for (; live != 0u; live &= live - 1u) {
+                const int j = j0 + __ffs(live) - 1;
+                const float4 f0 = rows[j * ROW_F4 + 0];  // mx, my, A, B
+                const float4 f1 = rows[j * ROW_F4 + 1];  // C, r, g, b
+                const float4 f2 = rows[j * ROW_F4 + 2];  // depth, op, bound, pad
+                float dx, dy;
+                const float sigma = splat_sigma(px, py, f0, f1.x, &dx, &dy);
+                if (splat_keep(sigma, f2.z)) {
+                    const float alpha = fminf(splat_alpha_raw(f2.y, sigma), alpha_clamp);
+                    composite_step(alpha, f1, f2.x, &T, &r, &g, &b, &d);
+                    if (COUNT && inside) ++n_kept;
+                }
             }
         }
         done_pairs = base + nb;
@@ -123,6 +158,7 @@ extern "C" __global__ void raster_fwd_kernel(
         out_tfinal[o] = T;
     }
     if (walked != nullptr && p == 0) walked[t] = done_pairs;
+    if (COUNT) add_counters(counters, t, n_kept, n_live);
 }
 
 // Launches on `stream`, allocates nothing, does not synchronise. Returns
@@ -130,14 +166,17 @@ extern "C" __global__ void raster_fwd_kernel(
 extern "C" int raster_fwd_launch(
     const void* table, const void* pair_gauss, const void* tile_offsets,
     const void* tile_counts, void* out_rgbd, void* out_tfinal, void* walked,
+    void* counters,
     int num_tiles, int tiles_x, int tile_w, int tile_h, int width, int height,
     float alpha_clamp, float trans_eps, int sat_check, void* stream)
 {
     if (num_tiles > 0) {
-        raster_fwd_kernel<<<num_tiles, tile_w * tile_h, 0, (cudaStream_t)stream>>>(
+        auto kernel = counters != nullptr ? raster_fwd_kernel<true> : raster_fwd_kernel<false>;
+        const int threads = (tile_w * tile_h + 31) & ~31;  // whole warps
+        kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
             (const float4*)table, (const int*)pair_gauss, (const int*)tile_offsets,
             (const int*)tile_counts, (float4*)out_rgbd, (float*)out_tfinal,
-            (int*)walked, tiles_x, tile_w, tile_h, width, height,
+            (int*)walked, (int*)counters, tiles_x, tile_w, tile_h, width, height,
             alpha_clamp, trans_eps, sat_check);
     }
     return (int)cudaGetLastError();

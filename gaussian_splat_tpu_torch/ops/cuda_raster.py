@@ -9,6 +9,11 @@ here and a plain PyTorch version of the same arguments in ops/tile_raster.py:
   raster_bwd  raster_backward    raster_backward_torch    _bwd_kernel
   segsum      segment_sum        segment_sum_torch        _segsum_kernel
 
+The two raster kernels share csrc/raster_common.cuh: the thread layout (8×4
+pixel warps), the per-splat extent and the per-warp cull; their plain mirrors
+(`tile_thread_pixels`, `tile_warp_rects`, `splat_extent_torch`,
+`extent_misses_rect`) are in ops/tile_raster.py too.
+
 A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
 unsupported shape: nothing falls back. `launch_counts[name]` goes up by one
@@ -47,8 +52,8 @@ launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "raster_fwd": [_P] * 7 + [_I] * 6 + [_F, _F, _I, _P],
-    "raster_bwd": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "raster_fwd": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
+    "raster_bwd": [_P] * 11 + [_I] * 7 + [_F, _P],
     "segsum": [_P] * 4 + [_I, _P],
 }
 
@@ -84,7 +89,7 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, like=None) -> 
 
 
 def _check_raster_inputs(kernel, table, pair_gauss, tile_offsets, tile_counts,
-                         width, height, config) -> int:
+                         width, height, config, walked, counters) -> int:
     """Shared checks of the two raster kernels; returns the tile count."""
     tw, th = config.tile_width, config.tile_height
     if tw * th > MAX_THREADS_PER_BLOCK:
@@ -97,17 +102,25 @@ def _check_raster_inputs(kernel, table, pair_gauss, tile_offsets, tile_counts,
     _check("pair_gauss", pair_gauss, torch.int32, (pair_gauss.shape[0],), table)
     _check("tile_offsets", tile_offsets, torch.int32, (num_tiles,), table)
     _check("tile_counts", tile_counts, torch.int32, (num_tiles,), table)
+    if walked is not None:
+        _check("walked", walked, torch.int32, (num_tiles,), table)
+    if counters is not None:
+        _check("counters", counters, torch.int32, (num_tiles, 2), table)
     return num_tiles
 
 
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return x.data_ptr() if x is not None else None
+
+
 def _launch_forward(
-    table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked
+    table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked,
+    counters,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     num_tiles = _check_raster_inputs(
-        "raster_fwd", table, pair_gauss, tile_offsets, tile_counts, width, height, config
+        "raster_fwd", table, pair_gauss, tile_offsets, tile_counts, width, height,
+        config, walked, counters,
     )
-    if walked is not None:
-        _check("walked", walked, torch.int32, (num_tiles,), table)
     launch = _launcher("raster_fwd")
     dev = table.device
     with torch.cuda.device(dev):
@@ -116,7 +129,7 @@ def _launch_forward(
         err = launch(
             table.data_ptr(), pair_gauss.data_ptr(), tile_offsets.data_ptr(),
             tile_counts.data_ptr(), rgbd.data_ptr(), t_final.data_ptr(),
-            walked.data_ptr() if walked is not None else None,
+            _ptr(walked), _ptr(counters),
             num_tiles, config.tiles_x(width), config.tile_width, config.tile_height,
             width, height, config.alpha_clamp, config.transmittance_eps,
             int(config.sat_check), torch.cuda.current_stream().cuda_stream,
@@ -129,17 +142,16 @@ def _launch_forward(
 
 def _launch_backward(
     table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final, d_rgbd,
-    d_t_final, width, height, config, walked,
+    d_t_final, width, height, config, walked, counters,
 ) -> torch.Tensor:
     num_tiles = _check_raster_inputs(
-        "raster_bwd", table, pair_gauss, tile_offsets, tile_counts, width, height, config
+        "raster_bwd", table, pair_gauss, tile_offsets, tile_counts, width, height,
+        config, walked, counters,
     )
     for name, x in (("rgbd", rgbd), ("d_rgbd", d_rgbd)):
         _check(name, x, torch.float32, (height, width, 4), table)
     for name, x in (("t_final", t_final), ("d_t_final", d_t_final)):
         _check(name, x, torch.float32, (height, width), table)
-    if walked is not None:
-        _check("walked", walked, torch.int32, (num_tiles,), table)
     launch = _launcher("raster_bwd")
     dev = table.device
     num_rows = pair_gauss.shape[0]
@@ -147,10 +159,9 @@ def _launch_backward(
         rows = torch.empty((num_rows, ROW_COLS), dtype=torch.float32, device=dev)
         err = launch(
             table.data_ptr(), pair_gauss.data_ptr(), tile_offsets.data_ptr(),
-            tile_counts.data_ptr(),
-            walked.data_ptr() if walked is not None else None,
+            tile_counts.data_ptr(), _ptr(walked),
             rgbd.data_ptr(), t_final.data_ptr(), d_rgbd.data_ptr(),
-            d_t_final.data_ptr(), rows.data_ptr(),
+            d_t_final.data_ptr(), rows.data_ptr(), _ptr(counters),
             num_rows, num_tiles, config.tiles_x(width), config.tile_width,
             config.tile_height, width, height, config.alpha_clamp,
             torch.cuda.current_stream().cuda_stream,
@@ -189,12 +200,16 @@ def raster_forward(
     config: RenderConfig,
     # optional (T,) i32 out: pairs each tile walked before its early exit
     walked: Optional[torch.Tensor] = None,
+    # optional (T, 2) i32, zeroed by the caller: the kernel adds, per tile, its
+    # kept steps inside the image and the (warp, pair)s its cull let through
+    counters: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward raster kernel: (rgbd (H,W,4), T_final (H,W)), no background
     applied, no autograd graph (`rasterize` is the differentiable stage).
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version, which walks whole segments and leaves `walked` alone."""
+    version, which walks whole segments and leaves `walked` and `counters`
+    alone."""
     if not table.is_cuda:
         with torch.no_grad():
             return tile_raster.raster_forward_torch(
@@ -202,7 +217,7 @@ def raster_forward(
             )
     return _launch_forward(
         table.detach(), pair_gauss, tile_offsets, tile_counts, width, height,
-        config, walked,
+        config, walked, counters,
     )
 
 
@@ -219,6 +234,7 @@ def raster_backward(
     height: int,
     config: RenderConfig,
     walked: Optional[torch.Tensor] = None,  # (T,) i32 from the forward
+    counters: Optional[torch.Tensor] = None,  # (T, 2) i32, as in raster_forward
 ) -> torch.Tensor:
     """The backward raster kernel: (B, 12) f32 gradient rows, one per pair in
     the pair list's order, laid out like the table's rows (columns 10 and 11
@@ -233,7 +249,7 @@ def raster_backward(
         return torch.nn.functional.pad(rows10, (0, ROW_COLS - rows10.shape[1]))
     return _launch_backward(
         table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
-        d_rgbd, d_t_final, width, height, config, walked,
+        d_rgbd, d_t_final, width, height, config, walked, counters,
     )
 
 

@@ -129,6 +129,86 @@ def pair_pixel_sigma(
     return rows, local_tile, start, px, py, sigma
 
 
+# Margins of the per-splat extent, as in csrc/raster_common.cuh (the reasons
+# are given there): det is lowered by 2^-18·A·C, the half-extents are widened
+# by a factor 1 + 2^-16 and by 2^-6 pixels.
+EXTENT_DET_MARGIN = 2.0**-18
+EXTENT_REL_MARGIN = 1.0 + 2.0**-16
+EXTENT_ABS_MARGIN = 2.0**-6
+EXTENT_MIN_AC = 1e-30
+
+
+def splat_extent_torch(table_rows: torch.Tensor) -> torch.Tensor:
+    """(…, 4) float32 [mx, my, hx, hy]: the conservative extent that the CUDA
+    raster kernels compute for each staged pair and test per warp before they
+    load its row — the plain mirror of `splat_extent` in
+    csrc/raster_common.cuh, operation for operation. Every offset (dx, dy)
+    from the centre that passes the keep test (0 ≤ σ ≤ bound in float32) has
+    |dx| ≤ hx and |dy| ≤ hy, with hx = √(2·bound·C/det), hy = √(2·bound·A/det)
+    widened by the margins above. Rows with bound < 0 get an empty extent
+    (−inf); rows whose conic is not safely positive definite, or that hold a
+    non-finite value, an infinite one. Used by the tests and chip_smoke.py."""
+    f32 = torch.float32
+    rows = table_rows.to(f32)
+    A, B, C = rows[..., COL_A], rows[..., COL_B], rows[..., COL_C]
+    bound = rows[..., COL_BOUND]
+    ac = A * C
+    det_lo = (ac - B * B) - EXTENT_DET_MARGIN * ac
+    q = 2.0 * bound
+    hx = torch.sqrt((q * C) / det_lo) * EXTENT_REL_MARGIN + EXTENT_ABS_MARGIN
+    hy = torch.sqrt((q * A) / det_lo) * EXTENT_REL_MARGIN + EXTENT_ABS_MARGIN
+    ok = (
+        (A > 0.0) & (C > 0.0) & (det_lo > 0.0) & (ac >= EXTENT_MIN_AC)
+        & torch.isfinite(hx) & torch.isfinite(hy)
+        & torch.isfinite(rows[..., COL_MX]) & torch.isfinite(rows[..., COL_MY])
+    )
+    inf = torch.full_like(hx, float("inf"))
+    hx, hy = torch.where(ok, hx, inf), torch.where(ok, hy, inf)
+    hx, hy = torch.where(bound < 0.0, -inf, hx), torch.where(bound < 0.0, -inf, hy)
+    return torch.stack([rows[..., COL_MX], rows[..., COL_MY], hx, hy], dim=-1)
+
+
+def extent_misses_rect(extent, x0, x1, y0, y1) -> torch.Tensor:
+    """True where no pixel centre of the rectangle [x0, x1] × [y0, y1] can pass
+    the keep test of a splat with this `splat_extent_torch` row: the kernels'
+    per-warp cull (`warp_culls` in csrc/raster_common.cuh), which compares the
+    rectangle's outermost rounded offsets from the centre with ±hx, ±hy.
+    All arguments broadcast."""
+    mx, my, hx, hy = extent.unbind(-1)
+    return (x0 - mx > hx) | (x1 - mx < -hx) | (y0 - my > hy) | (y1 - my < -hy)
+
+
+def tile_thread_pixels(tile_w: int, tile_h: int) -> np.ndarray:
+    """(tile_w·tile_h, 2) int (x, y): the pixel of its tile that thread p of a
+    raster kernel's block owns (`tile_pixel` in csrc/raster_common.cuh)."""
+    p = np.arange(tile_w * tile_h)
+    if tile_w % 8 == 0 and tile_h % 4 == 0:
+        w, lane, blocks_x = p // 32, p % 32, tile_w // 8
+        return np.stack([(w % blocks_x) * 8 + lane % 8, (w // blocks_x) * 4 + lane // 8], 1)
+    return np.stack([p % tile_w, p // tile_w], 1)
+
+
+def tile_warp_rects(tile_w: int, tile_h: int) -> np.ndarray:
+    """(warps, 4) int [x0, x1, y0, y1]: the pixel rectangle, in pixels of the
+    tile, that holds each warp of a raster kernel's block — the layout rule of
+    csrc/raster_common.cuh (`tile_pixel`, `warp_rect`): 8×4 pixel blocks when
+    tile_w % 8 == 0 and tile_h % 4 == 0, else 32 consecutive row-major pixels
+    (whole rows once a warp wraps)."""
+    npix = tile_w * tile_h
+    rects = []
+    for first in range(0, npix, 32):
+        last = min(first + 31, npix - 1)
+        if tile_w % 8 == 0 and tile_h % 4 == 0:
+            w, blocks_x = first // 32, tile_w // 8
+            x0, y0 = (w % blocks_x) * 8, (w // blocks_x) * 4
+            rects.append((x0, x0 + 7, y0, y0 + 3))
+        else:
+            y0, y1 = first // tile_w, last // tile_w
+            x0, x1 = (first % tile_w, last % tile_w) if y0 == y1 else (0, tile_w - 1)
+            rects.append((x0, x1, y0, y1))
+    return np.asarray(rects, dtype=np.int64)
+
+
 def composite_pairs(
     table: torch.Tensor,  # (N, 12) rank-ordered per-splat table
     pair_gauss: torch.Tensor,  # (B,) depth rank per pair
