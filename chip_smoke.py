@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the GPU through the entry points a user calls
-— serving frames and training — builds every hand-written CUDA kernel from
-csrc/, holds each against its plain PyTorch version on the card, and shows
-that each path went through its kernels (launch counts). One JSON object per
-line:
+Drives the port's three paths on the GPU through the entry points a user
+calls — serving frames, training, and the interactive viewer — builds every
+hand-written CUDA kernel from csrc/, holds each against its plain PyTorch
+version on the card, and shows that each path went through its kernels
+(launch counts, set to 0 just before a path and read just after it). One
+JSON object per line:
 
   env        GPU name and power limit (as nvidia-smi prints them), versions
   build      seconds to build csrc/, the libraries, the compiler's report
@@ -18,11 +19,23 @@ line:
   train_path same scene through fit (one view) and fit_multiview_adc (four
              views, a densify, a checkpoint and a resume), with the step's
              time and its split by stage
-  kernels    each kernel vs its plain version: errors, times, bound, launches;
-             the raster kernels' own count of kept steps vs the plain count
-             (their per-warp cull dropped nothing) and the share of
+  view_path  the interactive viewer on the same scene: written to a PLY and
+             loaded back by the native reader (timed against numpy); a
+             Viewer with the grid/axes overlay and the pair-budget drag LoD
+             (and a second subset valued by measure_splat_contributions);
+             serve() driven over HTTP (full frames, a drag, modes, overlay
+             toggle, resize), the JPEG encode timed apart; kernel hot reload
+             on a temporary copy of csrc/ (a comment: rebuilt under a new
+             hash, the same frame; a syntax error: refused, the last good
+             build keeps serving); one frame under the profiler trace, with
+             the device's busy share of it
+  kernels    each kernel vs its plain version: errors, times, bound (from
+             gaussian_splat_tpu_torch/utils/roofline.py), launches on each
+             path; the raster kernels' own count of kept steps vs the plain
+             count (their per-warp cull dropped nothing) and the share of
              (warp, pair)s the cull let through
-  cli        `cli render` and `cli train` as subprocesses
+  cli        `cli render`, `cli train`, `cli view` (served over HTTP, then
+             terminated) and `cli validate` as subprocesses
   last line  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises: the process exits non-zero and prints no last line.
@@ -30,13 +43,20 @@ Without a GPU it exits with code 2 before running anything.
 """
 
 import copy
+import dataclasses
+import io
 import json
 import os
+import queue
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -52,17 +72,22 @@ from gaussian_splat_tpu_torch import (  # noqa: E402
     calibrate_render_config, fit, fit_multiview_adc, render,
 )
 from gaussian_splat_tpu_torch.camera import orbit_camera  # noqa: E402
-from gaussian_splat_tpu_torch.io.ply import load_gaussians  # noqa: E402
+from gaussian_splat_tpu_torch.io import ply  # noqa: E402
+from gaussian_splat_tpu_torch.io.ply import load_gaussians, save_gaussians  # noqa: E402
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
 from gaussian_splat_tpu_torch.ops.binning import bin_gaussians  # noqa: E402
 from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
-    _effective_opacities, _project_and_shade,
+    _effective_opacities, _project_and_shade, measure_pair_costs,
+    measure_splat_contributions,
 )
 from gaussian_splat_tpu_torch.train import trainer  # noqa: E402
 from gaussian_splat_tpu_torch.train.checkpoint import latest_step  # noqa: E402
 from gaussian_splat_tpu_torch.train.dataset import orbit_dataset  # noqa: E402
 from gaussian_splat_tpu_torch.train.loss import photometric_loss  # noqa: E402
-from gaussian_splat_tpu_torch.viewer.viewer import Viewer  # noqa: E402
+from gaussian_splat_tpu_torch.utils import roofline  # noqa: E402
+from gaussian_splat_tpu_torch.utils.timing import trace  # noqa: E402
+from gaussian_splat_tpu_torch.viewer.trackball import TrackballCamera  # noqa: E402
+from gaussian_splat_tpu_torch.viewer.viewer import Viewer, encode_jpeg  # noqa: E402
 
 DEVICE = "cuda"
 # full size: the bench scene of the JAX package (bench.py) — 1M splats, 1080p
@@ -75,22 +100,10 @@ ATOL, RTOL = 3e-5, 1e-4  # forward kernel vs plain version, per channel
 GRAD_RTOL, GRAD_ATOL_REL = 3e-3, 5e-6
 GOLDEN_LIMIT = 2e-3
 FIT_STEPS, ADC_STEPS, ADC_RESUME_STEPS, ADC_VIEWS = 6, 6, 8, 4
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth. The bound is stated against these.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# Operations of one (pixel, splat) step of raster_fwd. Every step: 2
-# subtractions and 7 for the quadratic form (the 2 halvings are per splat and
-# not counted). Only a step that passes the keep test goes on: 1 exp, 1
-# multiply, 1 min, 1 multiply for the weight, 8 in four multiply-adds, 2 for
-# the transmittance update.
-FLOPS_PER_STEP = 9
-FLOPS_PER_KEPT_STEP = 14
-# raster_bwd walks the same steps. A kept step costs the forward's 14, then
-# 12 for gC·(C_total − C_upto) + tail, 7 for v, 4 for dα, 2 for dσ, 5 for the
-# moments, 4 for the channel sums, and 10 additions into the block's sums.
-FLOPS_PER_KEPT_STEP_BWD = 58
+LOD_PAIRS = 0.1  # the viewer's drag budget: a tenth of the frame's pair cost
+JPEG_PSNR_MIN = 35.0  # dB: a served frame, decoded, vs render_frame's pixels
+HTTP_TIMEOUT = 120  # seconds, every socket operation and the CLI's start-up
+FULL_FRAMES = 4  # full frames served before the drag
 
 
 def emit(phase, **fields):
@@ -293,16 +306,6 @@ def grad_errors(got, want, floor=0.0):
     return float(err.max()) if err.numel() else 0.0, int((err > tol).sum())
 
 
-def bound_fields(n_bytes, flops):
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    return {
-        "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-        "bytes": n_bytes, "flops": flops,
-    }
-
-
 @torch.no_grad()
 def compare_kernels(name, model, camera, config, reps, tamper=None):
     """The three kernels vs their plain versions on one frame's binning:
@@ -365,9 +368,7 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
             max(1, reps // 4), warmup=0),
         # each input read once, each output written once; the operations that
         # this run's data needs
-        **bound_fields(
-            table.numel() * 4 + pairs * 4 + 2 * n_tiles * 4 + h * w * 5 * 4,
-            steps * FLOPS_PER_STEP + kept_steps * FLOPS_PER_KEPT_STEP),
+        **roofline.forward_cost(n, pairs, n_tiles, w, h, steps, kept_steps).fields(),
     }
 
     # -- raster_bwd --------------------------------------------------------
@@ -395,10 +396,8 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         "kernel_ms": time_ms(
             lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), reps),
         "plain_ms": plain_bwd_ms,
-        **bound_fields(
-            table.numel() * 4 + pairs * 4 + 3 * n_tiles * 4 + h * w * 10 * 4
-            + num_rows * cuda_raster.ROW_COLS * 4,
-            steps * FLOPS_PER_STEP + kept_steps * FLOPS_PER_KEPT_STEP_BWD),
+        **roofline.backward_cost(
+            n, pairs, n_tiles, w, h, num_rows, steps, kept_steps).fields(),
     }
 
     # -- segsum (on the rows the backward kernel made) -----------------------
@@ -432,10 +431,7 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
             lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n), reps),
         # rows and permutation of the real pairs read once, rank_starts read
         # once, the table's gradient written once; one addition per value read
-        **bound_fields(
-            pairs * (cuda_raster.ROW_COLS * 4 + 8) + (n + 1) * 4
-            + n * cuda_raster.ROW_COLS * 4,
-            pairs * cuda_raster.ROW_COLS),
+        **roofline.segsum_cost(n, pairs).fields(),
     }
     return {"raster_fwd": fwd, "raster_bwd": bwd, "segsum": seg}
 
@@ -767,7 +763,397 @@ def phase_train_path(model, camera, smi, workdir):
     return launches
 
 
-def phase_cli(workdir):
+def psnr(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0.0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def decode_jpeg(body):
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(url):
+    """(status, content type, body, round-trip ms), with a socket timeout."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=HTTP_TIMEOUT) as r:
+        body = r.read()
+        return r.status, r.headers.get("Content-Type"), body, (time.perf_counter() - t0) * 1e3
+
+
+def launches_since(before):
+    return {k: cuda_raster.launch_counts[k] - before[k] for k in cuda_raster.KERNELS}
+
+
+DRAG = [(1010, 560), (1060, 575), (1110, 585)]  # the served drag's moves, after a
+#   press at the frame's centre
+
+
+def view_cameras():
+    """Every camera the served frames take: the trackball's start pose, its
+    poses along the drag, and the last one at 1280x720."""
+    tb = TrackballCamera()
+    cams = [tb.camera(WIDTH, HEIGHT, DEVICE)]
+    tb.handle_mouse_down(WIDTH // 2, HEIGHT // 2, 0)
+    for x, y in DRAG:
+        tb.handle_mouse_move(x, y, HEIGHT)
+        cams.append(tb.camera(WIDTH, HEIGHT, DEVICE))
+    tb.handle_mouse_up()
+    return [*cams, tb.camera(1280, 720, DEVICE)]
+
+
+def device_busy(prof):
+    """(busy ms, events) of the device in a profiler window: the union of
+    the intervals of its events (kernels, copies, fills)."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def view_load(model, workdir):
+    """The bench scene written to a PLY and loaded back by the native reader;
+    both readers timed, their arrays bitwise equal."""
+    path = os.path.join(workdir, "bench_scene.ply")
+    t0 = time.perf_counter()
+    save_gaussians(path, model)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    times = {"native": [], "numpy": []}
+    fields = {}
+    for use_native in (True, False, True, False):
+        t0 = time.perf_counter()
+        fields[use_native] = ply.read_ply(path, use_native=use_native)
+        times[ply.last_read_path].append((time.perf_counter() - t0) * 1e3)
+    check(len(times["native"]) == 2, f"read_ply did not take the native path: {times}")
+    check(list(fields[True]) == list(fields[False]) and all(
+        fields[True][k].tobytes() == fields[False][k].tobytes() for k in fields[True]),
+        "native and numpy read_ply differ")
+    t0 = time.perf_counter()
+    loaded = load_gaussians(path, device=DEVICE)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(ply.last_read_path == "native", "load_gaussians did not read natively")
+    check(all(torch.equal(getattr(loaded, k), getattr(model, k)) for k in model.LEAVES),
+          "the scene did not survive the PLY round trip")
+    return loaded, path, {
+        "ply_bytes": os.path.getsize(path), "write_ms": write_ms,
+        "read_native_ms": min(times["native"]), "read_numpy_ms": min(times["numpy"]),
+        "read_ms_all": times, "load_gaussians_ms": load_ms,
+    }
+
+
+def covering_config(base, scenes):
+    """One config whose capacities cover every (model, cameras) in `scenes`:
+    the largest `pairs_per_gaussian` and `big_tier_capacity` that
+    calibrate_render_config measures for each. A drag subset needs its own:
+    the pair budget is `pairs_per_gaussian` × N of the model rendered, and a
+    subset keeps the splats that cost more pairs than the average one."""
+    cfgs = [calibrate_render_config(m, cams, base) for m, cams in scenes]
+    return dataclasses.replace(
+        base, pairs_per_gaussian=max(c.pairs_per_gaussian for c in cfgs),
+        big_tier_capacity=max(c.big_tier_capacity for c in cfgs))
+
+
+@torch.no_grad()
+def view_subsets(model, cams, camera):
+    """The drag subsets at the start pose `cams[0]`: the viewer's
+    (impact-valued) and one valued by measure_splat_contributions. Returns
+    the config that covers the full model and both subsets on every served
+    camera, and the report: each subset within its pair budget, each frame
+    lighter than the full one."""
+    cam0 = cams[0]
+    config = calibrate_render_config(model, [camera, *cams], RenderConfig())
+    costs = measure_pair_costs(model, cam0, config, device=DEVICE)
+    before = dict(cuda_raster.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = measure_splat_contributions(model, cam0, config, device=DEVICE)
+    contrib_ms = (time.perf_counter() - t0) * 1e3
+    contrib_launches = launches_since(before)
+    check(contrib_launches == dict.fromkeys(cuda_raster.KERNELS, 1),
+          f"measure_splat_contributions: expected one launch of each kernel: {contrib_launches}")
+    check(bool(np.isfinite(values).all()) and values.max() > 0, "contributions not finite")
+    check(all(getattr(model, k).grad is None for k in model.LEAVES),
+          "measure_splat_contributions left a .grad on the model")
+    subsets = {"impact": model.lod_pair_budget(LOD_PAIRS, costs),
+               "measured": model.lod_pair_budget(LOD_PAIRS, costs, values=values)}
+    config = covering_config(config, [(model, [camera, *cams]), (subsets["impact"], cams),
+                                      (subsets["measured"], [cam0])])
+    budget = LOD_PAIRS * float(np.maximum(costs, 1).sum())
+    full = render(model, cam0, config)
+    full_pairs = int(full.stats.num_pairs)
+    report = {"full_num_pairs": full_pairs, "budget": budget, "contributions_ms": contrib_ms,
+              "contributions_launches": contrib_launches}
+    for name, sub in subsets.items():
+        cost = int(measure_pair_costs(sub, cam0, config, device=DEVICE).sum())
+        out = render(sub, cam0, config)
+        st = {k: int(v) for k, v in out.stats._asdict().items()}
+        check(cost <= budget + 1e-6, f"{name} subset costs {cost} pairs, budget {budget}")
+        check(st["num_pairs"] < full_pairs and st["overflow"] == 0 and st["tier_overflow"] == 0,
+              f"{name} subset frame: {st}, the full frame {full_pairs} pairs")
+        report[name] = {"n_splats": sub.num_gaussians, "pair_cost": cost,
+                        "num_pairs": st["num_pairs"]}
+    return config, subsets["impact"], report
+
+
+def view_serve(viewer):
+    """serve() driven over HTTP: full frames, a drag (LoD frames), metrics,
+    modes, the overlay toggle and a resize; one raster_fwd launch a frame."""
+    from gaussian_splat_tpu_torch.viewer.viewer import INTERACTION_HOLD_S
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    server = viewer.serve(host="127.0.0.1", port=port, block=False)
+    served, frames = [], 0
+    before = dict(cuda_raster.launch_counts)
+    timers = viewer.timers.stats
+
+    def frame(shape, lod):
+        nonlocal frames
+        n_overlay = len(timers["overlay"]) if "overlay" in timers else 0
+        status, ctype, body, ms = http_get(base + "/frame")
+        frames += 1
+        img = decode_jpeg(body)
+        st = {k: int(v) for k, v in viewer.last_stats._asdict().items()}
+        check(status == 200 and ctype == "image/jpeg" and img.shape == shape,
+              f"/frame: {status} {ctype} {img.shape}, expected {shape}")
+        check(viewer.last_frame_lod == lod, f"/frame drew the LoD subset: "
+              f"{viewer.last_frame_lod}, expected {lod}")
+        check(st["overflow"] == 0 and st["tier_overflow"] == 0, f"sentinels fired: {st}")
+        drew_overlay = "overlay" in timers and len(timers["overlay"]) > n_overlay
+        served.append({
+            "mode": viewer.mode, "lod": lod, "shape": list(shape), "num_pairs": st["num_pairs"],
+            "http_ms": ms, "frame_ms": timers["frame"].last, "jpeg_ms": timers["jpeg"].last,
+            "overlay_ms": timers["overlay"].last if drew_overlay else None,
+            "jpeg_bytes": len(body),
+        })
+        return img, body
+
+    full_shape = (HEIGHT, WIDTH, 3)
+    try:
+        status, ctype, body, _ = http_get(base + "/")
+        check(status == 200 and ctype == "text/html" and b"/frame" in body, "GET / failed")
+        for _ in range(FULL_FRAMES):  # the first fills the allocator, the overlay's grids
+            img, body = frame(full_shape, False)
+        direct = viewer.render_frame()  # the same pose, through the entry point
+        frames += 1
+        jpeg_psnr = psnr(img, direct)
+        check(jpeg_psnr > JPEG_PSNR_MIN,
+              f"served frame vs render_frame: PSNR {jpeg_psnr} dB <= {JPEG_PSNR_MIN}")
+        same_bytes = encode_jpeg(direct) == body
+
+        http_get(base + f"/input?kind=down&x={WIDTH // 2}&y={HEIGHT // 2}&b=0")
+        for x, y in DRAG:
+            http_get(base + f"/input?kind=move&x={x}&y={y}")
+            frame(full_shape, True)
+        http_get(base + "/input?kind=up")
+        metrics = json.loads(http_get(base + "/metrics")[2])
+        check(metrics["num_gaussians"] == viewer.model.num_gaussians
+              and metrics["resolution"] == [WIDTH, HEIGHT], f"/metrics: {metrics}")
+        time.sleep(INTERACTION_HOLD_S)  # idle again: full frames
+        for query in ("kind=mode&m=depth", "kind=mode&m=alpha", "kind=mode&m=color"):
+            check(http_get(base + "/input?" + query)[0] == 204, f"/input?{query}")
+            if not query.endswith("color"):
+                frame(full_shape, False)
+        http_get(base + "/input?kind=overlay")
+        frame(full_shape, False)
+        http_get(base + "/input?kind=overlay")
+        http_get(base + "/input?kind=resize&w=1280&h=720")
+        frame((720, 1280, 3), False)
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = launches_since(before)
+    check(launches == {"raster_fwd": frames, "raster_bwd": 0, "segsum": 0},
+          f"expected one raster_fwd launch per frame ({frames}) and no backward: {launches}")
+
+    full = [f for f in served[1:] if f["mode"] == "color" and not f["lod"]
+            and f["overlay_ms"] is not None and f["shape"] == list(full_shape)]
+    lod = [f for f in served if f["lod"]]
+    med = statistics.median
+    return {
+        "frames": frames, "launches": launches, "jpeg_psnr_db": jpeg_psnr,
+        "jpeg_psnr_min_db": JPEG_PSNR_MIN, "jpeg_bytes_equal_direct": same_bytes,
+        "frame_ms_full": med(f["frame_ms"] for f in full),
+        "frame_ms_lod": med(f["frame_ms"] for f in lod),
+        "num_pairs_full": full[-1]["num_pairs"], "num_pairs_lod": [f["num_pairs"] for f in lod],
+        "overlay_ms": med(f["overlay_ms"] for f in served[1:] if f["overlay_ms"] is not None),
+        "http_frame_ms_full": med(f["http_ms"] for f in full),
+        "http_frame_ms_lod": med(f["http_ms"] for f in lod),
+        "jpeg_ms": med(f["jpeg_ms"] for f in served[1:]),
+        "jpeg_share_of_http_full": med(f["jpeg_ms"] / f["http_ms"] for f in full),
+        "metrics": metrics, "served": served,
+    }
+
+
+def view_hot_reload(model, camera, config, workdir):
+    """A Viewer with hot_reload watching a copy of csrc/: a comment rebuilds
+    raster_fwd under a new hash and the frame stays bitwise the same; a
+    syntax error is refused and the last good build keeps serving. The
+    plain forward is made to raise meanwhile: it must never run."""
+    src = os.path.join(workdir, "csrc_copy")
+    shutil.copytree(_build.CSRC_DIR, src)
+    kernel = os.path.join(src, "raster_fwd.cu")
+
+    def edit(text):
+        with open(kernel, "a") as f:
+            f.write(text)
+        later = time.time() + 2.0
+        os.utime(kernel, (later, later))
+
+    def plain_forbidden(*args, **kwargs):
+        raise RuntimeError("the hot-reloading viewer reached raster_forward_torch")
+
+    real_plain = tile_raster.raster_forward_torch
+    tile_raster.raster_forward_torch = plain_forbidden
+    before = dict(cuda_raster.launch_counts)
+    try:
+        viewer = Viewer(model, config, width=WIDTH, height=HEIGHT, show_overlay=False,
+                        hot_reload=src, device=DEVICE)
+        reloader = viewer._reloader
+        first = reloader.libraries["raster_fwd"]._name
+        f0 = viewer.render_frame(camera)
+        edit("\n// an edit that changes no code\n")
+        t0 = time.perf_counter()
+        f1 = viewer.render_frame(camera)
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        rebuilt = _build._libs["raster_fwd"]._name
+        check(reloader.reloads == 1 and reloader.failures == 0 and rebuilt != first
+              and rebuilt == str(_build.library_path("raster_fwd", src)),
+              f"raster_fwd was not rebuilt under its new hash: {first} -> {rebuilt}")
+        check(np.array_equal(f0, f1), "the rebuilt raster_fwd drew another frame")
+        edit("\nthis line is not C++;\n")
+        t0 = time.perf_counter()
+        f2 = viewer.render_frame(camera)
+        refuse_ms = (time.perf_counter() - t0) * 1e3
+        check(reloader.failures == 1 and "nvcc failed" in reloader.last_error
+              and _build._libs["raster_fwd"]._name == rebuilt,
+              "a broken source was not refused, or replaced the last good build")
+        check(np.array_equal(f0, f2), "after a refused rebuild the frame changed")
+        f3 = viewer.render_frame(camera)  # no change since: no new build
+        check(np.array_equal(f0, f3) and reloader.failures == 1, "a frame after the refusal")
+        launches = launches_since(before)
+        # four frames and two probe frames (the first build's, the rebuild's)
+        check(launches == {"raster_fwd": 6, "raster_bwd": 0, "segsum": 0},
+              f"hot reload: launches {launches}")
+    finally:
+        tile_raster.raster_forward_torch = real_plain
+        _build.install(_build.build_libraries())  # the checkout's own libraries again
+    return {
+        "first_library": os.path.basename(first), "rebuilt_library": os.path.basename(rebuilt),
+        "reload_frame_ms": reload_ms, "refused_frame_ms": refuse_ms,
+        "refusal": reloader.last_error.strip().splitlines()[-1][:300],
+        "frames_bitwise_equal": True, "launches": launches,
+    }
+
+
+def view_trace(viewer, camera, workdir):
+    """One bench-pose frame under utils.timing.trace: the device's busy share
+    of the frame's host window."""
+    viewer.resize(WIDTH, HEIGHT)
+    viewer.render_frame(camera)
+    torch.cuda.synchronize()
+    with trace(os.path.join(workdir, "trace")) as prof:
+        t0 = time.perf_counter()
+        viewer.render_frame(camera)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events = device_busy(prof)
+    check(events > 0, "the profiler saw no device activity in the traced frame")
+
+    def device_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    top = sorted(prof.key_averages(), key=device_us, reverse=True)[:8]
+    return {
+        "window_ms": window_ms, "device_busy_ms": busy_ms, "device_events": events,
+        "device_busy_share": busy_ms / window_ms,
+        "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
+    }
+
+
+def phase_view_path(model, camera, smi, workdir):
+    """The interactive viewer at full width; returns its launches and the
+    PLY it wrote."""
+    t_start = time.perf_counter()
+    cuda_raster.reset_launch_counts()
+    loaded, path, load = view_load(model, workdir)
+    cams = view_cameras()
+    config, impact, subsets = view_subsets(loaded, cams, camera)
+    viewer = Viewer(loaded, config, width=WIDTH, height=HEIGHT, lod_pair_budget=LOD_PAIRS,
+                    device=DEVICE)
+    check(torch.equal(viewer._model_lod.means, impact.means),
+          "the viewer's drag subset is not lod_pair_budget's at the start pose")
+    serve = view_serve(viewer)
+    hot = view_hot_reload(loaded, camera, config, workdir)
+    traced = view_trace(viewer, camera, workdir)
+    launches = dict(cuda_raster.launch_counts)
+    emit("view_path", gpu=smi, n_splats=loaded.num_gaussians, width=WIDTH, height=HEIGHT,
+         lod_pair_budget=LOD_PAIRS, launches=launches, load=load, subsets=subsets,
+         serve=serve, hot_reload=hot, trace=traced,
+         pairs_per_gaussian=config.pairs_per_gaussian,
+         big_tier_capacity=config.big_tier_capacity,
+         seconds=time.perf_counter() - t_start)
+    return launches, path
+
+
+def cli_view(ply_path, workdir):
+    """`cli view` as a user starts it: wait for its serving line, fetch a
+    frame and the metrics, then terminate it."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "gaussian_splat_tpu_torch.cli", "view", ply_path,
+           "--port", str(port), "--width", str(WIDTH), "--height", str(HEIGHT),
+           "--lod-pairs", str(LOD_PAIRS)]
+    err_path = os.path.join(workdir, "cli_view.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        try:
+            line = lines.get(timeout=HTTP_TIMEOUT)
+        except queue.Empty:
+            line = ""
+        startup_s = time.perf_counter() - t0
+        check("serving" in line, f"cli view printed no serving line: {line!r} "
+              f"{open(err_path).read()[-2000:]}")
+        base = f"http://127.0.0.1:{port}"
+        _, ctype, body, frame_ms = http_get(base + "/frame")
+        shape = decode_jpeg(body).shape
+        metrics = json.loads(http_get(base + "/metrics")[2])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    emit("cli", command="view", serving_line=line.strip(), startup_s=startup_s,
+         first_http_frame_ms=frame_ms, frame_shape=list(shape), metrics=metrics,
+         returncode=proc.returncode)
+    check(ctype == "image/jpeg" and shape == (HEIGHT, WIDTH, 3), f"cli view /frame: {shape}")
+    check(metrics["num_gaussians"] == N_SPLATS, f"cli view /metrics: {metrics}")
+
+
+def phase_cli(workdir, ply_path):
     def run(*argv):
         cmd = [sys.executable, "-m", "gaussian_splat_tpu_torch.cli", *argv]
         return subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -792,6 +1178,14 @@ def phase_cli(workdir):
     fitted = load_gaussians(ply, device=DEVICE)
     check(bool(torch.isfinite(fitted.means).all()), "cli train wrote non-finite means")
 
+    cli_view(ply_path, workdir)
+
+    res = run("validate", scene)
+    ok_lines = [ln for ln in res.stdout.splitlines() if ln.startswith("OK ")]
+    emit("cli", command="validate", returncode=res.returncode, stdout=res.stdout.strip())
+    check(res.returncode == 0 and len(ok_lines) == 2,
+          f"cli validate: {res.stdout} {res.stderr[-2000:]}")
+
 
 KERNEL_TABLE = {
     # name: (source, file:line of the TPU kernel it replaces)
@@ -815,6 +1209,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches = phase_main_path(model, camera, smi)
         train_launches = phase_train_path(model, camera, smi, workdir)
+        view_launches, ply_path = phase_view_path(model, camera, smi, workdir)
         config = calibrate_render_config(model, camera, RenderConfig())
         cases = phase_kernels(model, camera, config)
 
@@ -824,9 +1219,10 @@ def main():
             source, replaces = KERNEL_TABLE[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": serve_launches[name] + train_launches[name],
+                "launches": serve_launches[name] + train_launches[name] + view_launches[name],
                 "launches_main_path": serve_launches[name],
                 "launches_train_path": train_launches[name],
+                "launches_view_path": view_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                 "n_over": sum(c["n_over"] for c in cases[name]),
                 "ms": full["kernel_ms"], "kernel_ms": full["kernel_ms"],
@@ -847,7 +1243,9 @@ def main():
               "a kernel was never launched on the training path")
         check(kernels[0]["launches_main_path"] > 0,
               "raster_fwd was never launched on the frame-serving path")
-        phase_cli(workdir)
+        check(all(k["launches_view_path"] > 0 for k in kernels),
+              "a kernel was never launched on the interactive viewer's path")
+        phase_cli(workdir, ply_path)
     emit("done", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({

@@ -7,9 +7,14 @@ functions on tensors, explicit devices, and hand-written CUDA kernels
 `torch.autograd.Function` where the JAX package has Pallas kernels.
 
 Ported so far: the frame-serving path — load/create a model, `render`,
-`Viewer.render_frame`, `cli render` — and the training path — `render`'s
+`Viewer.render_frame`, `cli render` — the training path — `render`'s
 gradient, the photometric loss, per-group Adam, `fit`, `fit_multiview`,
-`fit_multiview_adc` (density control at fixed N), checkpoints, `cli train`.
+`fit_multiview_adc` (density control at fixed N), checkpoints, `cli train` —
+and the interactive viewer — the native PLY reader (native/gsply.cpp),
+transforms.json I/O, the grid/axes overlay, the drag level-of-detail, the
+MJPEG `Viewer.serve()`, kernel hot reload, `cli view` and `cli validate` —
+with the utils (H100 roofline, numerics guards, profiler trace). Not yet:
+multi-GPU (the trainer's `mesh=` raises).
 The package imports torch and numpy only; it never imports jax or anything of
 gaussian_splat_tpu.
 

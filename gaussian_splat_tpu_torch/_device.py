@@ -20,3 +20,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def require_device(actual: torch.device, device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on (`device`, None: the GPU), which the
+    data it was handed (lying on `actual`) must be on already."""
+    want = resolve_device(device)
+    if want.type != actual.type or (
+        want.index is not None and actual.index is not None and want.index != actual.index
+    ):
+        raise ValueError(f"runs on {want}, but its data lies on {actual}")
+    return want

@@ -2,14 +2,15 @@
 
 Subcommands:
   render     — render a PLY scene to a PNG from an orbit pose
+  view       — serve the interactive HTTP viewer for a PLY scene
   train      — fit a scene to a target image
   turntable  — render an orbit to PNG frames
+  validate   — cross-check the fast backends against the oracle
   info       — print scene statistics for a PLY
 
 Usage: python -m gaussian_splat_tpu_torch.cli <subcommand> [options]
 
-Everything runs on the GPU unless `--device cpu` is given. `view` and
-`validate` arrive with their slices.
+Everything runs on the GPU unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import threading
 
 from gaussian_splat_tpu_torch.config import BACKENDS
 
@@ -39,7 +41,14 @@ def _add_render_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-sat-check", action="store_true",
                    help="disable the kernel's early-saturation exit: exact "
                         "tau=0 compositing")
+    _add_aabb_clip_arg(p)
     _add_device_arg(p)
+
+
+def _add_aabb_clip_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--aabb-clip", type=float, default=None,
+                   help="drop splats with any |coord| >= R (the original "
+                        "viewer clips at 5)")
 
 
 def _render_config(args):
@@ -60,7 +69,10 @@ def _render_config(args):
 def _load_model(args):
     from gaussian_splat_tpu_torch.io.ply import load_gaussians
 
-    return load_gaussians(args.ply, device=args.device)
+    model = load_gaussians(args.ply, device=args.device)
+    if args.aabb_clip:
+        model = model.aabb_filter(args.aabb_clip)
+    return model
 
 
 def cmd_render(args) -> int:
@@ -80,6 +92,34 @@ def cmd_render(args) -> int:
         out = render(model, cam, _render_config(args))
     Image.fromarray(to_uint8(out.image)).save(args.out)
     print(f"rendered {model.num_gaussians} splats on {model.device} -> {args.out}")
+    return 0
+
+
+def cmd_view(args) -> int:
+    from gaussian_splat_tpu_torch.viewer.viewer import Viewer
+
+    model = _load_model(args)
+    viewer = Viewer(
+        model,
+        _render_config(args),
+        width=args.width,
+        height=args.height,
+        show_overlay=not args.no_overlay,
+        hot_reload=args.hot_reload,
+        lod_fraction=args.lod,
+        lod_pair_budget=args.lod_pairs,
+        device=model.device,
+    )
+    server = viewer.serve(host=args.host, port=args.port, block=False)
+    # printed once the socket listens: a client that waits for this line can
+    # connect at once
+    print(f"serving {model.num_gaussians} splats on {model.device} at "
+          f"http://{args.host}:{server.server_address[1]}/", flush=True)
+    try:
+        threading.Event().wait()  # until the process is interrupted
+    finally:
+        server.shutdown()
+        server.server_close()
     return 0
 
 
@@ -128,6 +168,42 @@ def cmd_turntable(args) -> int:
     return 0
 
 
+def cmd_validate(args) -> int:
+    """Cross-check the fast backends against the oracle on a small crop of
+    the scene. On the GPU: "torch_tile" (plain torch) and "cuda" (the
+    kernels); on the CPU "cuda" cannot run and is reported as skipped."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gaussian_splat_tpu_torch.camera import orbit_camera
+    from gaussian_splat_tpu_torch.ops.render import render
+
+    model = _load_model(args)
+    if model.num_gaussians > args.sample:
+        idx = np.random.default_rng(0).choice(
+            model.num_gaussians, args.sample, replace=False
+        )
+        model = model._take_host(idx)
+    cam = orbit_camera(args.radius, 30.0, 20.0, width=160, height=120,
+                       device=model.device)
+    cfg = _render_config(args)
+    ok = True
+    with torch.no_grad():
+        ref = render(model, cam, dataclasses.replace(cfg, backend="reference")).image
+        for be in ["torch_tile", "cuda"]:
+            if be == "cuda" and model.device.type != "cuda":
+                print(f"SKIP {be:<10} needs a CUDA device (running on {model.device})")
+                continue
+            img = render(model, cam, dataclasses.replace(cfg, backend=be)).image
+            err = float((img - ref).abs().max())
+            status = "OK " if err < args.tol else "FAIL"
+            ok &= err < args.tol
+            print(f"{status} {be:<10} max|Δ| vs oracle = {err:.2e} (tol {args.tol:.0e})")
+    return 0 if ok else 1
+
+
 def cmd_info(args) -> int:
     model = _load_model(args)
     means = model.means.detach()
@@ -158,6 +234,27 @@ def main(argv=None) -> int:
     _add_render_config_args(p)
     p.set_defaults(fn=cmd_render)
 
+    p = sub.add_parser("view", help="interactive HTTP viewer")
+    p.add_argument("ply")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--height", type=int, default=720)
+    p.add_argument("--no-overlay", action="store_true",
+                   help="disable the grid/axes overlay (toggle live with 'g')")
+    p.add_argument("--lod", type=float, default=0.0,
+                   help="render the top-LOD fraction of splats while the "
+                        "camera is being dragged (0 = always full model)")
+    p.add_argument("--lod-pairs", type=float, default=0.0,
+                   help="pair-budget-aware drag LoD: bound the dragged "
+                        "frame's tile-pair cost to this fraction of the "
+                        "full frame's (takes precedence over --lod)")
+    p.add_argument("--hot-reload", action="store_true",
+                   help="poll the CUDA sources (csrc/) every frame and "
+                        "hot-swap rebuilt kernels, keeping the last good build")
+    _add_render_config_args(p)
+    p.set_defaults(fn=cmd_view)
+
     p = sub.add_parser("train", help="fit a scene to a target image")
     p.add_argument("ply")
     p.add_argument("--target", required=True, help="target image (PNG/JPEG)")
@@ -181,8 +278,18 @@ def main(argv=None) -> int:
     _add_render_config_args(p)
     p.set_defaults(fn=cmd_turntable)
 
+    p = sub.add_parser("validate", help="cross-check backends vs the oracle")
+    p.add_argument("ply")
+    p.add_argument("--sample", type=int, default=2000,
+                   help="subsample to this many splats (oracle is O(N·H·W))")
+    p.add_argument("--radius", type=float, default=5.0)
+    p.add_argument("--tol", type=float, default=1e-3)
+    _add_render_config_args(p)
+    p.set_defaults(fn=cmd_validate)
+
     p = sub.add_parser("info", help="scene statistics")
     p.add_argument("ply")
+    _add_aabb_clip_arg(p)
     _add_device_arg(p)
     p.set_defaults(fn=cmd_info)
 

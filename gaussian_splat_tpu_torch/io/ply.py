@@ -1,10 +1,13 @@
 """PLY scene reader and writer in the 3DGS convention.
 
-Counterpart of gaussian_splat_tpu/io/ply.py (own copy of its pure-numpy paths;
-the native multithreaded (de)interleaver arrives with the I/O slice — the
-files it reads and writes are the same bytes). Parameters stay RAW: logits, log-scales and SH
-coefficients are stored as they are and activated in the forward pass. Mixed
-property dtypes are honored via a numpy structured dtype.
+Counterpart of gaussian_splat_tpu/io/ply.py. Binary payloads go through the
+port's native multithreaded (de)interleaver (native/gsply.cpp, built with g++
+on first use) and, where it cannot be built, through numpy; both give the
+same arrays and the same bytes. `last_read_path` says which path the last
+`read_ply` took ("native", "numpy" or "ascii"). Parameters stay RAW: logits,
+log-scales and SH coefficients are stored as they are and activated in the
+forward pass. Mixed property dtypes are honored via a numpy structured dtype
+(numpy path) or a per-column conversion (native path).
 
 SH `f_rest` layout is channel-major per the 3DGS ecosystem: for degree D with
 K=(D+1)² bases, `f_rest_{c·(K−1)+i}` is channel c, band coefficient i+1.
@@ -12,12 +15,15 @@ K=(D+1)² bases, `f_rest_{c·(K−1)+i}` is channel c, band coefficient i+1.
 
 from __future__ import annotations
 
+import ctypes
 import io
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from gaussian_splat_tpu_torch import native
 from gaussian_splat_tpu_torch._device import DeviceLike
 from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_tpu_torch.ops.sh import num_sh_bases, rgb_to_sh_dc
@@ -85,19 +91,73 @@ def _parse_header(f) -> Tuple[int, list, bool, int]:
     return vertex_count, props, is_binary, end
 
 
-def read_ply(path: str) -> Dict[str, np.ndarray]:
+# which path the newest read_ply took: "native", "numpy" or "ascii"
+last_read_path: Optional[str] = None
+
+
+def _threads() -> int:
+    return min(os.cpu_count() or 1, 16)
+
+
+def _read_binary_native(
+    path: str, n: int, props, header_len: int, stride: int, lib
+) -> Dict[str, np.ndarray]:
+    """Multithreaded column extraction by native/gsply.cpp, which converts
+    every dtype `_parse_header` admits."""
+    enums = [native.DTYPE_ENUM[dt] for _, dt in props]
+    mm = np.memmap(path, dtype=np.uint8, mode="r", offset=header_len)
+    if mm.size < n * stride:
+        raise ValueError(
+            f"PLY truncated: expected {n} vertices ({n * stride} bytes), "
+            f"got {mm.size} bytes"
+        )
+    outs = {name: np.empty(n, np.float32) for name, _ in props}
+    offsets = np.zeros(len(props), np.int64)
+    acc = 0
+    for i, (_, dt) in enumerate(props):
+        offsets[i] = acc
+        acc += np.dtype(dt).itemsize
+    dts = np.asarray(enums, np.int32)
+    ptrs = (ctypes.c_void_p * len(props))(*[o.ctypes.data for o in outs.values()])
+    lib.gsply_deinterleave(
+        ctypes.cast(mm.ctypes.data, ctypes.c_char_p),
+        ctypes.c_int64(n),
+        ctypes.c_int64(stride),
+        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        dts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int32(len(props)),
+        ptrs,
+        ctypes.c_int32(_threads()),
+    )
+    del mm
+    return outs
+
+
+def read_ply(path: str, use_native: bool = True) -> Dict[str, np.ndarray]:
     """Read all vertex properties into a dict of (N,) float32 numpy arrays
-    (uchar colors are converted losslessly)."""
+    (uchar colors are converted losslessly).
+
+    Binary files go through the native deinterleaver unless `use_native` is
+    False or the library cannot be built (one warning on stderr); then
+    through a numpy structured dtype. Both give bitwise the same arrays."""
+    global last_read_path
     with open(path, "rb") as f:
         n, props, is_binary, header_len = _parse_header(f)
-        f.seek(header_len)
         if is_binary:
+            stride = int(sum(np.dtype(dt).itemsize for _, dt in props))
+            lib = native.get_lib() if use_native and n > 0 else None
+            if lib is not None:
+                last_read_path = "native"
+                return _read_binary_native(path, n, props, header_len, stride, lib)
+            f.seek(header_len)
             data = np.fromfile(f, dtype=np.dtype(props), count=n)
             if data.shape[0] != n:
                 raise ValueError(
                     f"PLY truncated: expected {n} vertices, got {data.shape[0]}"
                 )
+            last_read_path = "numpy"
         else:
+            f.seek(header_len)
             flat = np.loadtxt(io.TextIOWrapper(f, "ascii"), max_rows=n, ndmin=2)
             if flat.shape != (n, len(props)):
                 raise ValueError(
@@ -106,6 +166,7 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
             data = np.zeros(n, dtype=np.dtype([(p, "<f8") for p, _ in props]))
             for i, (name, _) in enumerate(props):
                 data[name] = flat[:, i]
+            last_read_path = "ascii"
     return {
         name: np.ascontiguousarray(data[name]).astype(np.float32)
         for name, _ in props
@@ -207,8 +268,21 @@ def save_gaussians(path: str, model: GaussianModel) -> None:
         for i in range(rest):
             cols[f"f_rest_{c * rest + i}"] = sh[:, 1 + i, c]
 
-    # interleave columns → rows
-    flat = np.stack([cols[nm] for nm in names], axis=1).astype(np.float32, copy=False)
+    # interleave columns → rows: native multithreaded path when available
+    col_list = [np.ascontiguousarray(cols[nm], np.float32) for nm in names]
+    lib = native.get_lib() if n > 0 else None
+    if lib is not None:
+        flat = np.empty((n, len(names)), np.float32)
+        ptrs = (ctypes.c_void_p * len(names))(*[c.ctypes.data for c in col_list])
+        lib.gsply_interleave_f32(
+            ptrs,
+            ctypes.c_int64(n),
+            ctypes.c_int32(len(names)),
+            ctypes.c_void_p(flat.ctypes.data),
+            ctypes.c_int32(_threads()),
+        )
+    else:
+        flat = np.stack(col_list, axis=1) if n > 0 else np.zeros((0, len(names)), np.float32)
 
     header = (
         "ply\n"

@@ -2,8 +2,13 @@
 
 Counterpart of gaussian_splat_tpu/models/gaussians.py. Parameters are stored
 RAW (log-scales, opacity logits, SH coefficients) and activated inside the
-forward pass. The level-of-detail and AABB filters of the JAX model arrive
-with the viewer's LoD slice.
+forward pass.
+
+The level-of-detail and AABB filters (`lod`, `lod_pair_budget`,
+`aabb_filter`) rank splats with the JAX package's own numpy code on float32
+host copies of the leaves: `np.argsort(impact)[::-1]` is not a stable sort,
+so only the same numpy code on the same float32 inputs keeps the same splats.
+The rows they keep are then gathered on the model's device.
 
 `GaussianModel.replace(...)` is the counterpart of the JAX model's `replace`:
 it returns a `GaussianView`, the same five leaves as plain (possibly
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -149,3 +155,85 @@ class GaussianModel(_Splats, nn.Module):
         if K > 1:
             sh[:, 1:, :] = 0.1 * normal((n, K - 1, 3))
         return cls(means, quats, log_scales, opacity_logits, sh)
+
+    # -- filters ------------------------------------------------------------
+    def _host(self, name: str) -> np.ndarray:
+        return getattr(self, name).detach().cpu().numpy()
+
+    def lod(self, fraction: float) -> "GaussianModel":
+        """Keep the `fraction` highest-impact splats (impact ≈ opacity ×
+        max-scale², the view-independent part of expected screen coverage).
+
+        Level-of-detail subset for interactive viewing: the viewer renders
+        this while the camera is being dragged and the full model when idle.
+        Ranked on the host, load/init time only."""
+        n = self.num_gaussians
+        k = max(1, min(n, int(n * fraction)))
+        op = 1.0 / (1.0 + np.exp(-self._host("opacity_logits")))
+        smax = np.exp(self._host("log_scales")).max(axis=-1)
+        impact = op * smax * smax
+        keep = np.argsort(impact)[::-1][:k]
+        keep.sort()  # preserve original relative order
+        return self._take_host(keep)
+
+    def lod_pair_budget(
+        self, cost_fraction: float, costs=None, values=None,
+        order: str = "value",
+    ) -> "GaussianModel":
+        """Pair-budget LoD: keep the subset whose predicted tile-PAIR cost is
+        ≤ `cost_fraction` of the full model's.
+
+        Frame time scales with tile pairs, not with N, so splats are admitted
+        in decreasing value order (or value-per-pair with `order="density"`)
+        until `cost_fraction` of the total predicted cost is spent.
+
+        `costs`: optional (N,) per-splat pair costs — the K-capped tile-rect
+        areas of `ops.render.measure_pair_costs(model, camera, config)` at a
+        representative pose; splats culled there (cost 0) are admitted last.
+        Without it, a view-independent proxy `1 + β·smax²` is used.
+
+        `values`: optional (N,) per-splat visual worth, e.g. the measured
+        contribution of `ops.render.measure_splat_contributions`. Default:
+        impact = opacity × world area, `lod()`'s ranking.
+
+        `costs` and `values` may be numpy arrays or tensors. Ranked on the
+        host, load/init time only. As in the JAX package, each culled splat
+        is charged one pair in the budget's total."""
+        n = self.num_gaussians
+        op = 1.0 / (1.0 + np.exp(-self._host("opacity_logits")))
+        smax = np.exp(self._host("log_scales")).max(axis=-1)
+        area = smax * smax
+        value = op * area if values is None else np.asarray(_numpy(values), np.float64)
+        if costs is None:
+            beta = n / max(float(area.sum()), 1e-12)
+            cost = 1.0 + beta * area
+        else:
+            cost = np.asarray(_numpy(costs), np.float64)
+            value = value * (cost > 0)  # splats culled at the pose sort last
+            cost = np.maximum(cost, 1.0)
+        key = value / cost if order == "density" else value
+        idx = np.argsort(-key, kind="stable")
+        csum = np.cumsum(cost[idx])
+        k = int(np.searchsorted(csum, cost_fraction * csum[-1], side="right"))
+        keep = idx[: max(1, min(n, k))]
+        keep.sort()  # preserve original relative order
+        return self._take_host(keep)
+
+    def _take_host(self, keep) -> "GaussianModel":
+        """The splats at host indices `keep`, in that order, gathered on the
+        model's device into a new model."""
+        idx = torch.tensor(np.array(keep, np.int64), device=self.device)
+        return GaussianModel(
+            *(getattr(self, name).detach()[idx] for name in LEAVES)
+        )
+
+    def aabb_filter(self, radius: float) -> "GaussianModel":
+        """Keep splats with |x|,|y|,|z| < radius — the optional scene-load
+        clip of the original viewer (radius 5 there). Load time only."""
+        keep = np.all(np.abs(self._host("means")) < radius, axis=-1)
+        return self._take_host(np.flatnonzero(keep))
+
+
+def _numpy(x) -> np.ndarray:
+    """A tensor's values on the host, or `x` as it is."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x

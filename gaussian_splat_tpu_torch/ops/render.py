@@ -19,8 +19,10 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from gaussian_splat_tpu_torch._device import DeviceLike, require_device
 from gaussian_splat_tpu_torch.camera import Camera
 from gaussian_splat_tpu_torch.config import BACKENDS, RenderConfig
 from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
@@ -169,3 +171,64 @@ def calibrate_render_config(
     return dataclasses.replace(
         config, pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap
     )
+
+
+@torch.no_grad()
+def measure_pair_costs(
+    model: GaussianModel,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Per-splat K-capped tile-rect areas at `camera` — the (N,) pair-cost
+    vector behind `GaussianModel.lod_pair_budget`, on the host.
+
+    The projection + rect pass of `calibrate_render_config` (no
+    rasterization), per splat: cost[i] is the number of tile cells splat i's
+    K-capped rect covers, an upper bound on the pairs it contributes (the
+    σ-bound cell test only removes pairs), and 0 for splats culled at this
+    camera. The model must lie on `device` (None: the GPU)."""
+    require_device(model.device, device)
+    proj, _ = _project_and_shade(model, camera, config)
+    _tx0, _ty0, w, h, _cl = tile_rects(
+        proj.means2d, proj.radii, proj.valid, camera.width, camera.height,
+        config, extents=proj.extents,
+    )
+    return (w * h).cpu().numpy()
+
+
+def measure_splat_contributions(
+    model: GaussianModel,
+    camera: Camera,
+    config: RenderConfig = RenderConfig(),
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """Per-splat measured visual contribution at `camera`: |∂Σimage/∂logit_i|,
+    (N,) on the host, from one differentiable render — the value vector for
+    `GaussianModel.lod_pair_budget`.
+
+    The raster stage is always `cuda_raster.rasterize` with its explicit
+    backward, whatever `config.backend` says: on CUDA tensors one launch each
+    of raster_fwd, raster_bwd and segsum, on CPU tensors their plain
+    versions. The gradient is taken by `torch.autograd.grad` with respect to
+    a detached copy of the logits, so the model gets no `.grad` and keeps no
+    graph. As in the JAX package the image is summed BEFORE the gradient is
+    taken, so signed effects of a splat on different pixels cancel (a known
+    defect of the reference, ported as it is). The model must lie on
+    `device` (None: the GPU)."""
+    from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster
+
+    require_device(model.device, device)
+    logits = model.opacity_logits.detach().requires_grad_()
+    view = model.replace(
+        **{name: getattr(model, name).detach() for name in model.LEAVES},
+    ).replace(opacity_logits=logits)
+    with torch.enable_grad():
+        proj, colors = _project_and_shade(view, camera, config)
+        opacities = _effective_opacities(view, proj, config)
+        image, _t, _d, _s = tile_raster.render_tiled(
+            proj, colors, opacities, camera.width, camera.height, config,
+            raster_fn=cuda_raster.rasterize,
+        )
+        (grad,) = torch.autograd.grad(image.sum(), logits)
+    return grad.abs().cpu().numpy()

@@ -3,7 +3,9 @@
 Counterpart of gaussian_splat_tpu/utils/timing.py. `ScopeTimer` scopes are
 wall-clock with a device synchronisation at exit when they time a CUDA device
 (PyTorch returns before the device finishes, so an unsynchronised scope would
-measure the enqueue). The profiler-trace and benchmark helpers arrive later.
+measure the enqueue). `trace` is a `torch.profiler` scope that writes a
+Chrome trace (the counterpart of `jax.profiler.trace`), `time_fn` the median
+milliseconds of a call.
 """
 
 from __future__ import annotations
@@ -91,3 +93,43 @@ class ScopeTimer:
                 f"min {s.min:8.3f}   max {s.max:8.3f}   (n={len(s)})"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]):
+    """Profiler scope: host and (where there is one) CUDA activity, written
+    to `log_dir` as a Chrome trace (`*.pt.trace.json`) when the scope ends.
+    Yields the `torch.profiler.profile` (its `key_averages()`, `events()`),
+    or None and does nothing when `log_dir` is None."""
+    if log_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def time_fn(fn, *args, warmup: int = 2, iters: int = 10, **kwargs) -> float:
+    """Benchmark helper: median wall-clock ms of `fn(*args)`, the device
+    synchronised before and after each call."""
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    times = []
+    for _ in range(iters):
+        _sync()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        _sync()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    times.sort()
+    return times[len(times) // 2]

@@ -68,6 +68,10 @@ def test_pyproject_ships_the_port_and_its_kernel_sources():
     assert "csrc/*.cu" in pkg_data and "csrc/*.cuh" in pkg_data
     for name in ("raster_fwd.cu", "raster_bwd.cu", "segsum.cu", "raster_common.cuh"):
         assert (PKG / "csrc" / name).exists(), name
+    # the native PLY loader's source is the port's own copy, shipped as data
+    assert data["tool"]["setuptools"]["package-data"]["gaussian_splat_tpu_torch.native"] == ["*.cpp"]
+    own = PKG / "native" / "gsply.cpp"
+    assert own.exists() and own != ROOT / "gaussian_splat_tpu" / "native" / "gsply.cpp"
     assert "gaussian_splat_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
 
 

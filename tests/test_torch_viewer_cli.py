@@ -77,15 +77,23 @@ def test_turntable_and_to_uint8(viewers, tmp_path):
 
 
 def test_later_slices_raise(viewers):
-    _, _, tv, _ = viewers
+    """What this slice ported no longer raises: the viewer takes the overlay,
+    both LoDs and `serve()`. Only multi-GPU (the trainer's `mesh=`) still
+    raises."""
+    from gaussian_splat_tpu_torch.config import TrainConfig
+    from gaussian_splat_tpu_torch.train.trainer import make_train_step
+
+    _, _, tv, tc = viewers
     model = tv.model
-    for kw in (dict(show_overlay=True), dict(show_overlay=False, hot_reload=True),
-               dict(show_overlay=False, lod_fraction=0.5),
+    for kw in (dict(show_overlay=True), dict(show_overlay=False, lod_fraction=0.5),
                dict(show_overlay=False, lod_pair_budget=0.5)):
-        with pytest.raises(NotImplementedError):
-            Viewer(model, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        tv.serve()
+        v = Viewer(model, device="cpu", width=W, height=H, **kw)
+        assert v.render_frame().shape == (H, W, 3)
+    server = tv.serve(port=0, block=False)
+    server.shutdown()
+    server.server_close()
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        make_train_step(tc, tv.config, TrainConfig(), mesh=object())
 
 
 def test_scope_timer_records():
