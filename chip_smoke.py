@@ -33,7 +33,12 @@ JSON object per line:
              gaussian_splat_tpu_torch/utils/roofline.py), launches on each
              path; the raster kernels' own count of kept steps vs the plain
              count (their per-warp cull dropped nothing) and the share of
-             (warp, pair)s the cull let through
+             (warp, pair)s the cull let through; rank_perm's permutation vs
+             the rank sort (equal, element for element), segsum also on a
+             ragged full-size case. `ms` = `kernel_ms`, one call per event
+             pair (the host's time to issue it included); beside it
+             `kernel_ms_back_to_back` (calls issued back to back) and, for
+             the backward's reduction, the profiler's `device_ms`
   cli        `cli render`, `cli train`, `cli view` (served over HTTP, then
              terminated) and `cli validate` as subprocesses
   last line  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -75,7 +80,9 @@ from gaussian_splat_tpu_torch.camera import orbit_camera  # noqa: E402
 from gaussian_splat_tpu_torch.io import ply  # noqa: E402
 from gaussian_splat_tpu_torch.io.ply import load_gaussians, save_gaussians  # noqa: E402
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
-from gaussian_splat_tpu_torch.ops.binning import bin_gaussians  # noqa: E402
+from gaussian_splat_tpu_torch.ops.binning import (  # noqa: E402
+    bin_gaussians, rank_permutation_from_sort,
+)
 from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
     _effective_opacities, _project_and_shade, measure_pair_costs,
     measure_splat_contributions,
@@ -130,6 +137,42 @@ def time_ms(fn, reps, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_back_to_back_ms(fn, reps, calls=20):
+    """Median milliseconds per call of `calls` calls of fn() issued back to
+    back between two CUDA events: the device's time per call once the host
+    keeps ahead of it (time_ms also counts the host's time to issue the one
+    call while the device waits)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_ms(fn, calls=10):
+    """Milliseconds per call of the device activity (kernels, copies, fills)
+    that fn() issues, by the profiler: the device's own time, with no host
+    time in it. fn is called once before."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # None where the trace holds no device activity: not measured, not 0
+    return sum(t.end - t.start for t in spans) / 1e3 / calls if spans else None
 
 
 # -- scenes -------------------------------------------------------------------
@@ -308,7 +351,7 @@ def grad_errors(got, want, floor=0.0):
 
 @torch.no_grad()
 def compare_kernels(name, model, camera, config, reps, tamper=None):
-    """The three kernels vs their plain versions on one frame's binning:
+    """The four kernels vs their plain versions on one frame's binning:
     {kernel name: case}. The backward kernels get seeded cotangents of unit
     scale, and are run twice to show that their results are bitwise equal.
     Both raster kernels also count their kept steps and the (warp, pair)s
@@ -363,6 +406,8 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         "kept_steps": kept_steps, **cull_fields("raster_fwd", counted),
         "max_abs_err": float(err.max()), "n_over": int(over.sum()),
         "kernel_ms": time_ms(lambda: cuda_raster.raster_forward(*args, w, h, config), reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(
+            lambda: cuda_raster.raster_forward(*args, w, h, config), reps),
         "plain_ms": time_ms(
             lambda: tile_raster.raster_forward_torch(*args, w, h, config),
             max(1, reps // 4), warmup=0),
@@ -395,13 +440,43 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         "pad_columns_and_rows_zero": tail_clean,
         "kernel_ms": time_ms(
             lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(
+            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), reps),
         "plain_ms": plain_bwd_ms,
         **roofline.backward_cost(
             n, pairs, n_tiles, w, h, num_rows, steps, kept_steps).fields(),
     }
 
-    # -- segsum (on the rows the backward kernel made) -----------------------
-    perm = tile_raster.rank_permutation(pair_gauss, rank_starts, n)
+    # -- rank_perm (the backward's rank order, from binning's own sort) ------
+    sort_args = (binning.pair_src, pair_gauss, rank_starts, config)
+    perm = cuda_raster.rank_permutation_from_sort(*sort_args)
+    perm_again = cuda_raster.rank_permutation_from_sort(*sort_args)
+    plain_perm = rank_permutation_from_sort(*sort_args)
+    keyed = torch.where(torch.arange(num_rows, device=DEVICE) < pairs, pair_gauss, n)
+    rank = {
+        **shape, "rows": num_rows,
+        # integers: exact, or wrong
+        "max_abs_err": float((perm - plain_perm).abs().max()) if num_rows else 0.0,
+        "n_over": int((perm != plain_perm).sum()),
+        "equals_rank_sort": bool(torch.equal(
+            perm, tile_raster.rank_permutation(pair_gauss, rank_starts, n))),
+        "bitwise_repeatable": bool(torch.equal(perm, perm_again)),
+        "kernel_ms": time_ms(lambda: cuda_raster.rank_permutation_from_sort(*sort_args), reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(
+            lambda: cuda_raster.rank_permutation_from_sort(*sort_args), reps),
+        "device_ms": device_ms(lambda: cuda_raster.rank_permutation_from_sort(*sort_args)),
+        "plain_ms": time_ms(lambda: rank_permutation_from_sort(*sort_args), reps),
+        # the yardstick: ONE stable sort of the keyed ranks
+        "library_ms": time_ms(lambda: torch.sort(keyed, stable=True), reps),
+        "rank_sort_ms": time_ms(
+            lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n), reps),
+        # the real pairs' slots and ranks and rank_starts read once, the
+        # permutation written once
+        **roofline.rank_perm_cost(n, pairs, num_rows).fields(),
+    }
+
+    # -- segsum (on the rows the backward kernel made, through rank_perm's
+    # permutation) ------------------------------------------------------------
     d_table = cuda_raster.segment_sum(rows, perm, rank_starts, n)
     d_table_again = cuda_raster.segment_sum(rows, perm, rank_starts, n)
     want_table = tile_raster.segment_sum_torch(rows, perm, rank_starts, n)
@@ -422,28 +497,86 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         "max_abs_err": seg_err, "n_over": seg_over,
         "max_abs_err_vs_library": lib_err, "n_over_vs_library": lib_over,
         "bitwise_repeatable": bool(torch.equal(d_table, d_table_again)),
+        "perm_equals_rank_sort": rank["equals_rank_sort"],
         "kernel_ms": time_ms(
             lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n), reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(
+            lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n), reps),
+        "device_ms": device_ms(lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n)),
         "plain_ms": time_ms(
             lambda: tile_raster.segment_sum_torch(rows, perm, rank_starts, n), reps),
         "library_ms": time_ms(library, reps),
-        "rank_sort_ms": time_ms(
-            lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n), reps),
-        # rows and permutation of the real pairs read once, rank_starts read
-        # once, the table's gradient written once; one addition per value read
+        "perm_ms": rank["kernel_ms"], "rank_sort_ms": rank["rank_sort_ms"],
+        # rows and int32 permutation of the real pairs read once, rank_starts
+        # read once, the table's gradient written once; one addition per value
+        # read
         **roofline.segsum_cost(n, pairs).fields(),
     }
-    return {"raster_fwd": fwd, "raster_bwd": bwd, "segsum": seg}
+    return {"raster_fwd": fwd, "raster_bwd": bwd, "rank_perm": rank, "segsum": seg}
+
+
+@torch.no_grad()
+def ragged_segments():
+    """(rows, perm, rank_starts, n, lengths) at full size, ragged: most ranks
+    empty (and the last tenth, as culled splats are), segments of 1-6 and of
+    32 pairs side by side, a stretch of 2,000 segments of 32, one of 5,000
+    (far past max_tiles_per_gaussian and past many warps' runs), junk in the
+    padding rows."""
+    n = N_SPLATS
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    u = torch.rand((n,), generator=gen, device=DEVICE)
+    short = torch.randint(1, 7, (n,), generator=gen, device=DEVICE)
+    lengths = torch.where(u < 0.6, 0, torch.where(u < 0.9, short, 32))
+    lengths[n // 2 : n // 2 + 2000] = 32
+    lengths[n // 3] = 5000
+    lengths[-(n // 10):] = 0
+    rank_starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=DEVICE),
+                             torch.cumsum(lengths, 0)]).to(torch.int32)
+    pairs = int(rank_starts[-1])
+    num_rows = pairs + 4096
+    perm = torch.randperm(num_rows, generator=gen, device=DEVICE).to(torch.int32)
+    rows = torch.randn((num_rows, cuda_raster.ROW_COLS), generator=gen, device=DEVICE)
+    return rows, perm, rank_starts, n, lengths
+
+
+@torch.no_grad()
+def segsum_ragged(reps):
+    """segsum on `ragged_segments`: against the plain version, twice bitwise,
+    empty ranks zero, and the owner rule's plain mirror giving every rank one
+    warp."""
+    rows, perm, rank_starts, n, lengths = ragged_segments()
+    pairs, num_rows = int(rank_starts[-1]), rows.shape[0]
+    runs = tile_raster.segsum_runs(rank_starts, n, num_rows)
+    got = cuda_raster.segment_sum(rows, perm, rank_starts, n)
+    again = cuda_raster.segment_sum(rows, perm, rank_starts, n)
+    err, over = grad_errors(got, tile_raster.segment_sum_torch(rows, perm, rank_starts, n))
+    return {
+        "case": "ragged_full", "n_splats": n, "pairs": pairs, "rows": num_rows,
+        "empty_ranks": int((lengths == 0).sum()), "longest_segment": int(lengths.max()),
+        "max_abs_err": err, "n_over": over,
+        "bitwise_repeatable": bool(torch.equal(got, again)),
+        "empty_ranks_zero": not bool(got[lengths == 0].any()),
+        "warp_runs": runs.shape[0],
+        "owned_once": bool(int(runs[:, 1].sum()) == n and torch.equal(
+            runs[1:, 0], runs[:-1, 0] + runs[:-1, 1])),
+        "kernel_ms": time_ms(lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n), reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(
+            lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n), reps),
+        "device_ms": device_ms(lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n)),
+        **roofline.segsum_cost(n, pairs).fields(),
+    }
 
 
 def phase_kernels(model, camera, config):
-    """{kernel name: [case, ...]} over the small shapes and the full frame."""
+    """{kernel name: [case, ...]} over the small shapes and the full frame,
+    and segsum's ragged case at full size."""
     runs = [
         compare_kernels(name, m, cam, cfg, reps=5, tamper=tamper)
         for name, m, cam, cfg, tamper in small_scenes()
     ]
     runs.append(compare_kernels("bench_full", model, camera, config, reps=10))
     cases = {k: [run[k] for run in runs] for k in cuda_raster.KERNELS}
+    cases["segsum"].append(segsum_ragged(reps=10))
     for kernel, kernel_cases in cases.items():
         for c in kernel_cases:
             check(c["n_over"] == 0,
@@ -453,6 +586,13 @@ def phase_kernels(model, camera, config):
                   f"{kernel}: two runs on {c['case']} are not bitwise equal")
             check(c.get("pad_columns_and_rows_zero", True),
                   f"{kernel}: padding rows or columns not zero on {c['case']}")
+            check(c.get("equals_rank_sort", True) and c.get("perm_equals_rank_sort", True),
+                  f"{kernel}: the permutation from binning is not the rank sort's "
+                  f"on {c['case']}")
+            check(c.get("empty_ranks_zero", True),
+                  f"{kernel}: an empty rank's sum is not zero on {c['case']}")
+            check(c.get("owned_once", True),
+                  f"{kernel}: a rank without exactly one owning warp on {c['case']}")
     return cases
 
 
@@ -500,7 +640,7 @@ def phase_golden_grad():
 
 def phase_no_fallback():
     """On CUDA tensors a training step whose kernel cannot be built raises,
-    whichever of the three kernels it is; nothing gives way to a plain version
+    whichever of the four kernels it is; nothing gives way to a plain version
     or to autograd through one."""
     _, model, cam, cfg, _ = small_scenes()[0]
     real = _build.load_library
@@ -570,7 +710,7 @@ def phase_main_path(model, camera, smi):
     check(turntable_launches == ORBIT_FRAMES and launches == n_frames,
           f"expected one raster_fwd launch per frame: {launches} launches, "
           f"{n_frames} frames")
-    check(all_launches["raster_bwd"] == 0 and all_launches["segsum"] == 0,
+    check(all(all_launches[k] == 0 for k in ("raster_bwd", "rank_perm", "segsum")),
           f"serving frames launched a backward kernel: {all_launches}")
 
     # where a frame's time goes, stage by stage, at the bench pose
@@ -636,7 +776,15 @@ def step_split(model, camera, target, cfg, tc):
     d_t = torch.zeros_like(t_final)
     bwd_args = (*args, rgbd, t_final, d_rgbd, d_t, WIDTH, HEIGHT, cfg)
     rows = cuda_raster.raster_backward(*bwd_args, walked=walked)
-    perm = tile_raster.rank_permutation(binning.pair_gauss, binning.rank_starts, n)
+
+    def build_perm():
+        return cuda_raster.rank_permutation_from_sort(
+            binning.pair_src, binning.pair_gauss, binning.rank_starts, cfg)
+
+    perm = build_perm()
+    check(torch.equal(perm, tile_raster.rank_permutation(
+        binning.pair_gauss, binning.rank_starts, n)),
+        "step_split: the permutation from binning is not the rank sort's")
     d_table = cuda_raster.segment_sum(rows, perm, binning.rank_starts, n)
     params = [getattr(model, k) for k in model.LEAVES]
 
@@ -660,8 +808,7 @@ def step_split(model, camera, target, cfg, tc):
         "loss_fwd_bwd_ms": time_ms(loss_fwd_bwd, 5),
         "raster_bwd_ms": time_ms(
             lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), 5),
-        "rank_sort_ms": time_ms(
-            lambda: tile_raster.rank_permutation(binning.pair_gauss, binning.rank_starts, n), 5),
+        "perm_ms": time_ms(build_perm, 5),
         "segsum_ms": time_ms(
             lambda: cuda_raster.segment_sum(rows, perm, binning.rank_starts, n), 5),
         "autograd_projection_sh_ms": time_ms(autograd_rest, 5),
@@ -980,7 +1127,7 @@ def view_serve(viewer):
         server.shutdown()
         server.server_close()
     launches = launches_since(before)
-    check(launches == {"raster_fwd": frames, "raster_bwd": 0, "segsum": 0},
+    check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": frames},
           f"expected one raster_fwd launch per frame ({frames}) and no backward: {launches}")
 
     full = [f for f in served[1:] if f["mode"] == "color" and not f["lod"]
@@ -1050,7 +1197,7 @@ def view_hot_reload(model, camera, config, workdir):
         check(np.array_equal(f0, f3) and reloader.failures == 1, "a frame after the refusal")
         launches = launches_since(before)
         # four frames and two probe frames (the first build's, the rebuild's)
-        check(launches == {"raster_fwd": 6, "raster_bwd": 0, "segsum": 0},
+        check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": 6},
               f"hot reload: launches {launches}")
     finally:
         tile_raster.raster_forward_torch = real_plain
@@ -1193,6 +1340,9 @@ KERNEL_TABLE = {
                    "gaussian_splat_tpu/ops/pallas_raster.py:312"),
     "raster_bwd": ("gaussian_splat_tpu_torch/csrc/raster_bwd.cu",
                    "gaussian_splat_tpu/ops/pallas_raster.py:525"),
+    # no pallas_call: the lax.sort of the pairs in _gather_pairs_t_bwd
+    "rank_perm": ("gaussian_splat_tpu_torch/csrc/rank_perm.cu",
+                  "gaussian_splat_tpu/ops/pallas_raster.py:1082"),
     "segsum": ("gaussian_splat_tpu_torch/csrc/segsum.cu",
                "gaussian_splat_tpu/ops/pallas_raster.py:897"),
 }
@@ -1215,7 +1365,7 @@ def main():
 
         kernels = []
         for name in cuda_raster.KERNELS:
-            full = cases[name][-1]
+            full = next(c for c in cases[name] if c["case"] == "bench_full")
             source, replaces = KERNEL_TABLE[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1225,13 +1375,21 @@ def main():
                 "launches_view_path": view_launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                 "n_over": sum(c["n_over"] for c in cases[name]),
+                # one call per event pair (the host's time to issue it
+                # included), the measure of every slice; beside it, the time
+                # per call of calls issued back to back and the profiler's
+                # device time
                 "ms": full["kernel_ms"], "kernel_ms": full["kernel_ms"],
                 "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
                 "bound_by": full["bound_by"], "library_ms": full.get("library_ms"),
                 "share_of_bound": full["bound_ms"] / full["kernel_ms"],
+                "kernel_ms_back_to_back": full["kernel_ms_back_to_back"],
+                "device_ms": full.get("device_ms"),
+                "perm_ms": full.get("perm_ms"), "rank_sort_ms": full.get("rank_sort_ms"),
                 "live_warp_pair_share": full.get("live_warp_pair_share"),
                 "tolerance": (
                     {"atol": ATOL, "rtol": RTOL} if name == "raster_fwd"
+                    else {"exact": True} if name == "rank_perm"
                     else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
                 ),
                 "gpu": smi, "cases": cases[name],

@@ -21,9 +21,12 @@ its integer outputs equal the reference's on the same projection inputs:
 What differs from the reference, by design: the sort key is ONE int64
 `(tile << 32) | rank` sorted by `torch.sort` (no 32-bit packing limit and no
 two-key fallback), the rect columns are gathered directly rather than packed
-into a code word, and the pair list is exactly `pair_budget` long: the CUDA
-kernel needs no alignment padding. The sharded-path arguments (`max_active`,
-`tile_row0`, `total_tiles_y`) arrive with the multi-GPU slice.
+into a code word, the pair list is exactly `pair_budget` long (the CUDA
+kernel needs no alignment padding), and the sort's indices are kept
+(`pair_src`): from them `rank_permutation_from_sort` gives the backward the
+pairs' rank order, which the reference sorts again. The sharded-path
+arguments (`max_active`, `tile_row0`, `total_tiles_y`) arrive with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -52,6 +55,32 @@ class BinningResult(NamedTuple):
     #   counts: pairs of depth-rank r number rank_starts[r+1]−rank_starts[r]
     tier_overflow: torch.Tensor  # () int32 big-tier-ELIGIBLE gaussians denied a
     #   big slot because the big-tier capacity overflowed
+    pair_src: torch.Tensor  # (B,) int32 emission slot each pair was sorted from
+    #   (see `rank_permutation_from_sort`)
+
+
+class EmissionRows(NamedTuple):
+    """Where `bin_gaussians` emits its cells before the sort: `small` rows of
+    `k_small` slots (row r is depth rank r), then `big` rows of `k_big` (the
+    big tier, ranks in `_top_indices` order); a row emits its rect's cells in
+    row-major order. `pair_src` indexes these slots."""
+
+    small: int
+    k_small: int
+    big: int
+    k_big: int
+
+    @property
+    def slots(self) -> int:
+        return self.small * self.k_small + self.big * self.k_big
+
+
+def emission_rows(n: int, config: RenderConfig) -> EmissionRows:
+    """The emission layout of `bin_gaussians` for n splats."""
+    return EmissionRows(
+        n, config.small_tiles_per_gaussian, config.big_capacity(n),
+        config.max_tiles_per_gaussian,
+    )
 
 
 class BinningStats(NamedTuple):
@@ -269,9 +298,8 @@ def bin_gaussians(
     ty_n = config.tiles_y(height)
     num_tiles = tx_n * ty_n
     n = proj.means2d.shape[0]
-    K = config.max_tiles_per_gaussian
-    k_small = config.small_tiles_per_gaussian
-    m_big = config.big_capacity(n)
+    emission = emission_rows(n, config)
+    K, k_small, m_big = emission.k_big, emission.k_small, emission.big
     tw, th = config.tile_width, config.tile_height
 
     # --- 1. depth sort (near → far); culled splats sort last ----------------
@@ -340,7 +368,7 @@ def bin_gaussians(
     # Drop WHOLE gaussians from the far end of the depth order until the pair
     # budget fits: overflow is semantically clean (the farthest splats vanish)
     # and per-rank pair counts stay exact.
-    budget = min(config.pair_budget(n), n * k_small + m_big * K)
+    budget = min(config.pair_budget(n), emission.slots)
     ends_all = torch.cumsum(area, dim=0)
     fits = ends_all <= budget
     eff_area = torch.where(fits, area, 0)
@@ -365,7 +393,8 @@ def bin_gaussians(
         keys(cells_s, mask_s & fits[:, None], ranks),
         keys(cells_b, mask_b & fits[big_idx][:, None], _i32(big_idx)),
     ])
-    sorted_keys = torch.sort(flat_keys).values[:budget]
+    sorted_keys, src = torch.sort(flat_keys)
+    sorted_keys = sorted_keys[:budget]
     pair_tile = _i32(sorted_keys >> 32)
     pair_gauss = torch.where(
         pair_tile < num_tiles, _i32(sorted_keys & 0xFFFFFFFF), 0
@@ -387,4 +416,43 @@ def bin_gaussians(
         clamped_rects=clamped,
         rank_starts=rank_starts,
         tier_overflow=tier_ovf,
+        pair_src=_i32(src[:budget]),
     )
+
+
+@torch.no_grad()
+def rank_permutation_from_sort(
+    pair_src: torch.Tensor,  # (B,) int32 BinningResult.pair_src
+    pair_gauss: torch.Tensor,  # (B,) int32
+    rank_starts: torch.Tensor,  # (N+1,) int32
+    config: RenderConfig,
+) -> torch.Tensor:
+    """(B,) int32, element for element what `tile_raster.rank_permutation`
+    sorts out of the pair list — position i of the rank-sorted order holds
+    pair perm[i] — rebuilt from `bin_gaussians`' own sort with no second one:
+    the plain version of the rank_perm kernel
+    (`cuda_raster.rank_permutation_from_sort`, csrc/rank_perm.cu).
+
+    A row of the emission slots (`emission_rows`) emits its rect's cells in
+    row-major order, so its tile ids rise with the slot, and the tile-major
+    pair list holds a splat's pairs in the order of their slots. Pair j of rank r therefore sits at rank_starts[r] + (kept
+    cells of its row before its own): one scatter of ones over the slots, a
+    cumsum along each row, gathers over the pairs. Padding rows, past
+    rank_starts[N], keep their own places, as the stable sort leaves them."""
+    n = rank_starts.shape[0] - 1
+    b = pair_src.shape[0]
+    dev = pair_src.device
+    emission = emission_rows(n, config)
+    small, slots = emission.small * emission.k_small, emission.slots
+    position = torch.arange(b, dtype=torch.int32, device=dev)
+    real = position < rank_starts[n]
+    # kept cells: 1 at each real pair's slot (the padding's go to slot `slots`),
+    # then counted along each row
+    kept = torch.zeros(slots + 1, dtype=torch.int32, device=dev)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    kept.index_put_((torch.where(real, pair_src, slots),), one)
+    kept[:small].view(n, emission.k_small).cumsum_(1)
+    kept[small:slots].view(emission.big, emission.k_big).cumsum_(1)
+    place = rank_starts.index_select(0, pair_gauss).add_(kept.index_select(0, pair_src)).sub_(1)
+    perm = torch.empty_like(position)
+    return perm.index_put_((torch.where(real, place, position),), position)

@@ -1,18 +1,24 @@
 """The CUDA raster kernels' wrappers: build, launch, count, differentiate.
 
-Counterpart of gaussian_splat_tpu/ops/pallas_raster.py. Three hand-written
+Counterpart of gaussian_splat_tpu/ops/pallas_raster.py. Four hand-written
 kernels (csrc/, see each source's header for its design), each with a wrapper
-here and a plain PyTorch version of the same arguments in ops/tile_raster.py:
+here and a plain PyTorch version of the same arguments in ops/tile_raster.py
+(rank_perm's in ops/binning.py):
 
-  kernel      wrapper            plain version            replaces (TPU)
-  raster_fwd  raster_forward     raster_forward_torch     _fwd_kernel
-  raster_bwd  raster_backward    raster_backward_torch    _bwd_kernel
-  segsum      segment_sum        segment_sum_torch        _segsum_kernel
+  kernel      wrapper                     plain version          replaces (TPU)
+  raster_fwd  raster_forward              raster_forward_torch   _fwd_kernel
+  raster_bwd  raster_backward             raster_backward_torch  _bwd_kernel
+  rank_perm   rank_permutation_from_sort  (binning's, same name) the lax.sort in
+                                                                 _gather_pairs_t_bwd
+  segsum      segment_sum                 segment_sum_torch      _segsum_kernel
 
 The two raster kernels share csrc/raster_common.cuh: the thread layout (8×4
 pixel warps), the per-splat extent and the per-warp cull; their plain mirrors
 (`tile_thread_pixels`, `tile_warp_rects`, `splat_extent_torch`,
-`extent_misses_rect`) are in ops/tile_raster.py too.
+`extent_misses_rect`) are in ops/tile_raster.py too. segsum, bound by the
+bytes of its row gather, splits its work by pairs: a warp per run of ranks
+plus sorted positions, owning the ranks placed in its run (the owner rule's
+plain mirror is `tile_raster.segsum_runs`).
 
 A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
@@ -22,15 +28,18 @@ exactly where that kernel is launched.
 `rasterize` is the differentiable raster stage: one `torch.autograd.Function`
 spanning the (fused) pair gather and the compositing, as the reference's
 `raster_pairs_sorted` does. Forward = raster_fwd; backward = raster_bwd
-(per-pair gradient rows) → one stable sort of the pairs by depth rank (plain
-torch, as the reference leaves it to `lax.sort`) → segsum → the gradient of
-the rank-ordered table. Autograd's own transpose of `table[order]` takes that
-back to splat order. On CPU tensors the same Function runs the three plain
-versions, so the CPU tests exercise the explicit backward formulas.
+(per-pair gradient rows) → rank_perm (the pairs' rank order, read from
+binning's own sort where the reference sorts the pairs again with
+`lax.sort`; equal, element for element, to the stable sort
+`tile_raster.rank_permutation`) → segsum → the gradient of the rank-ordered
+table. Autograd's own transpose of `table[order]` takes that back to splat
+order. On CPU tensors the same Function runs the plain versions, so the CPU
+tests exercise the explicit backward formulas and the same permutation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -39,11 +48,12 @@ from torch.autograd.function import once_differentiable
 
 from gaussian_splat_tpu_torch import _build
 from gaussian_splat_tpu_torch.config import RenderConfig
+from gaussian_splat_tpu_torch.ops import binning as binning_ops
 from gaussian_splat_tpu_torch.ops import tile_raster
 from gaussian_splat_tpu_torch.ops.binning import BinningResult
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 
-KERNELS = ("raster_fwd", "raster_bwd", "segsum")
+KERNELS = ("raster_fwd", "raster_bwd", "rank_perm", "segsum")
 MAX_THREADS_PER_BLOCK = 1024
 ROW_COLS = tile_raster.TABLE_COLS  # gradient rows are laid out like table rows
 
@@ -54,7 +64,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "raster_fwd": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
     "raster_bwd": [_P] * 11 + [_I] * 7 + [_F, _P],
-    "segsum": [_P] * 4 + [_I, _P],
+    "rank_perm": [_P] * 5 + [_I] * 5 + [_P],
+    "segsum": [_P] * 4 + [_I, _I, _P],
 }
 
 
@@ -73,14 +84,30 @@ def _launcher(name: str):
     return fn
 
 
+def _on(dev: torch.device):
+    """Makes `dev` the current CUDA device for a launch, unless it already is
+    (the kernels launch on the current device; entering torch.cuda.device
+    costs every launch microseconds of the host's time)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    """dev's current stream as a raw cudaStream_t: what
+    `torch.cuda.current_stream(dev).cuda_stream` gives, without building a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape, like=None) -> None:
     if not x.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
-    if like is not None and x.device != like.device:
+    if like is not None and x.get_device() != like.get_device():
         raise ValueError(f"{name} is on {x.device}, expected {like.device}")
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
@@ -123,7 +150,7 @@ def _launch_forward(
     )
     launch = _launcher("raster_fwd")
     dev = table.device
-    with torch.cuda.device(dev):
+    with _on(dev):
         rgbd = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
         t_final = torch.empty((height, width), dtype=torch.float32, device=dev)
         err = launch(
@@ -132,7 +159,7 @@ def _launch_forward(
             _ptr(walked), _ptr(counters),
             num_tiles, config.tiles_x(width), config.tile_width, config.tile_height,
             width, height, config.alpha_clamp, config.transmittance_eps,
-            int(config.sat_check), torch.cuda.current_stream().cuda_stream,
+            int(config.sat_check), _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"raster_fwd launch failed: CUDA error {err}")
@@ -155,7 +182,7 @@ def _launch_backward(
     launch = _launcher("raster_bwd")
     dev = table.device
     num_rows = pair_gauss.shape[0]
-    with torch.cuda.device(dev):
+    with _on(dev):
         rows = torch.empty((num_rows, ROW_COLS), dtype=torch.float32, device=dev)
         err = launch(
             table.data_ptr(), pair_gauss.data_ptr(), tile_offsets.data_ptr(),
@@ -164,7 +191,7 @@ def _launch_backward(
             d_t_final.data_ptr(), rows.data_ptr(), _ptr(counters),
             num_rows, num_tiles, config.tiles_x(width), config.tile_width,
             config.tile_height, width, height, config.alpha_clamp,
-            torch.cuda.current_stream().cuda_stream,
+            _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"raster_bwd launch failed: CUDA error {err}")
@@ -172,17 +199,44 @@ def _launch_backward(
     return rows
 
 
+def _launch_rank_perm(pair_src, pair_gauss, rank_starts, config) -> torch.Tensor:
+    num_rows, n = pair_src.shape[0], rank_starts.shape[0] - 1
+    _check("pair_src", pair_src, torch.int32, (num_rows,))
+    _check("pair_gauss", pair_gauss, torch.int32, (num_rows,), pair_src)
+    _check("rank_starts", rank_starts, torch.int32, (n + 1,), pair_src)
+    slots = binning_ops.emission_rows(n, config)
+    launch = _launcher("rank_perm")
+    dev = pair_src.device
+    # one allocation for the kernel's scratch (one int per emission slot,
+    # rounded up to 16 bytes) and the permutation after it: each torch.empty
+    # costs the launch microseconds of the host's time
+    scratch = -(-slots.slots // 4) * 4
+    with _on(dev):
+        buf = torch.empty((max(scratch + num_rows, 1),), dtype=torch.int32, device=dev)
+        perm = buf[scratch : scratch + num_rows]
+        err = launch(
+            pair_src.data_ptr(), pair_gauss.data_ptr(), rank_starts.data_ptr(),
+            buf.data_ptr(), perm.data_ptr(), n, num_rows, slots.k_small,
+            slots.k_big, slots.big, _stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"rank_perm launch failed: CUDA error {err}")
+    launch_counts["rank_perm"] += 1
+    return perm
+
+
 def _launch_segsum(rows, perm, rank_starts, n) -> torch.Tensor:
-    _check("rows", rows, torch.float32, (rows.shape[0], ROW_COLS))
-    _check("perm", perm, torch.int64, (rows.shape[0],), rows)
+    num_rows = rows.shape[0]
+    _check("rows", rows, torch.float32, (num_rows, ROW_COLS))
+    _check("perm", perm, torch.int32, (num_rows,), rows)
     _check("rank_starts", rank_starts, torch.int32, (n + 1,), rows)
     launch = _launcher("segsum")
     dev = rows.device
-    with torch.cuda.device(dev):
+    with _on(dev):
         out = torch.empty((n, ROW_COLS), dtype=torch.float32, device=dev)
         err = launch(
             rows.data_ptr(), perm.data_ptr(), rank_starts.data_ptr(),
-            out.data_ptr(), n, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), n, num_rows, _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"segsum launch failed: CUDA error {err}")
@@ -253,9 +307,26 @@ def raster_backward(
     )
 
 
+def rank_permutation_from_sort(
+    pair_src: torch.Tensor,  # (B,) i32 BinningResult.pair_src
+    pair_gauss: torch.Tensor,  # (B,) i32
+    rank_starts: torch.Tensor,  # (N+1,) i32
+    config: RenderConfig,
+) -> torch.Tensor:
+    """The rank-order kernel: (B,) i32, the stable sort of the pair list by
+    depth rank (`tile_raster.rank_permutation`), read from binning's own sort
+    with no second one.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
+    version, `binning.rank_permutation_from_sort`."""
+    if not pair_src.is_cuda:
+        return binning_ops.rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
+    return _launch_rank_perm(pair_src, pair_gauss, rank_starts, config)
+
+
 def segment_sum(
     rows: torch.Tensor,  # (B, 12) f32 per-pair rows
-    perm: torch.Tensor,  # (B,) i64 `tile_raster.rank_permutation`
+    perm: torch.Tensor,  # (B,) i32 `rank_permutation_from_sort`
     rank_starts: torch.Tensor,  # (N+1,) i32
     n: int,
 ) -> torch.Tensor:
@@ -272,8 +343,8 @@ class _Raster(torch.autograd.Function):
     """gather + raster as one differentiable stage; see the module docstring."""
 
     @staticmethod
-    def forward(ctx, table, pair_gauss, tile_offsets, tile_counts, rank_starts,
-                width, height, config):
+    def forward(ctx, table, pair_gauss, pair_src, tile_offsets, tile_counts,
+                rank_starts, width, height, config):
         # the early exit is the kernel's; the plain forward walks everything
         walked = torch.empty_like(tile_counts) if table.is_cuda else None
         rgbd, t_final = raster_forward(
@@ -281,8 +352,8 @@ class _Raster(torch.autograd.Function):
             config, walked=walked,
         )
         ctx.save_for_backward(
-            table, pair_gauss, tile_offsets, tile_counts, rank_starts, rgbd,
-            t_final, walked,
+            table, pair_gauss, pair_src, tile_offsets, tile_counts, rank_starts,
+            rgbd, t_final, walked,
         )
         ctx.frame = (width, height, config)
         return rgbd, t_final
@@ -290,18 +361,17 @@ class _Raster(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, d_rgbd, d_t_final):
-        (table, pair_gauss, tile_offsets, tile_counts, rank_starts, rgbd,
-         t_final, walked) = ctx.saved_tensors
+        (table, pair_gauss, pair_src, tile_offsets, tile_counts, rank_starts,
+         rgbd, t_final, walked) = ctx.saved_tensors
         width, height, config = ctx.frame
-        n = table.shape[0]
         rows = raster_backward(
             table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
             d_rgbd.contiguous(), d_t_final.contiguous(), width, height, config,
             walked=walked,
         )
-        perm = tile_raster.rank_permutation(pair_gauss, rank_starts, n)
-        d_table = segment_sum(rows, perm, rank_starts, n)
-        return d_table, None, None, None, None, None, None, None
+        perm = rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
+        d_table = segment_sum(rows, perm, rank_starts, table.shape[0])
+        return d_table, *(None,) * 8
 
 
 def rasterize(
@@ -315,8 +385,8 @@ def rasterize(
     kernels on CUDA tensors (or raises), their plain versions on CPU tensors;
     the backward is the explicit one either way."""
     return _Raster.apply(
-        table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
-        binning.rank_starts, width, height, config,
+        table, binning.pair_gauss, binning.pair_src, binning.tile_offsets,
+        binning.tile_counts, binning.rank_starts, width, height, config,
     )
 
 

@@ -1,13 +1,15 @@
 """Tile rasterizer in plain torch: segmented log-space compositing over the pair list.
 
 Counterpart of gaussian_splat_tpu/ops/tile_raster.py, and the PLAIN VERSIONS of
-the three CUDA kernels (ops/cuda_raster.py). `raster_forward_torch` takes the
-forward kernel's arguments — the rank-ordered per-splat table, the pair list
-and the per-tile segments — and returns the same images; it is the port's CPU
+the raster and segment-sum CUDA kernels (ops/cuda_raster.py; rank_perm's is in
+ops/binning.py). `raster_forward_torch` takes the forward kernel's arguments —
+the rank-ordered per-splat table, the pair list and the per-tile segments —
+and returns the same images; it is the port's CPU
 backend, differentiable end-to-end by autograd, and on the GPU the yardstick
 the kernel is held against. `raster_backward_torch` (per-pair gradient rows by
 the explicit formulas, not by autograd) and `segment_sum_torch` (rows summed
-per depth rank) are the plain versions of the two backward kernels.
+per depth rank) are the plain versions of the two backward kernels;
+`segsum_runs` mirrors the segsum kernel's owner rule.
 
 Per-tile transmittance is a segmented exclusive prefix product over the pair
 list, computed as exp(segmented-cumsum(log1p(−α))) as in the reference (with
@@ -427,19 +429,22 @@ def raster_backward_torch(
 def rank_permutation(
     pair_gauss: torch.Tensor, rank_starts: torch.Tensor, n: int
 ) -> torch.Tensor:
-    """(B,) int64 stable sort of the pair list by depth rank: position i of
+    """(B,) int32 stable sort of the pair list by depth rank: position i of
     the sorted order holds pair `perm[i]`. Padding rows — those past the
     rank_starts[n] real pairs — are keyed to n and sort to the end; within a
-    rank the pairs keep their tile order, so the order is fixed."""
+    rank the pairs keep their tile order, so the order is fixed. The
+    yardstick of the rank_perm kernel and of its plain version
+    (`binning.rank_permutation_from_sort`), which give the same permutation
+    without sorting the pairs again: the backward takes theirs."""
     b = pair_gauss.shape[0]
     real = torch.arange(b, device=pair_gauss.device) < rank_starts[n]
     keys = torch.where(real, pair_gauss, n)
-    return torch.sort(keys, stable=True).indices
+    return torch.sort(keys, stable=True).indices.to(torch.int32)
 
 
 def segment_sum_torch(
     rows: torch.Tensor,  # (B, C) per-pair rows, in the pair list's order
-    perm: torch.Tensor,  # (B,) `rank_permutation`
+    perm: torch.Tensor,  # (B,) int32 `rank_permutation`
     rank_starts: torch.Tensor,  # (N+1,)
     n: int,
 ) -> torch.Tensor:
@@ -452,6 +457,37 @@ def segment_sum_torch(
     out = torch.zeros((n + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
     out.index_add_(0, rank.clamp_max(n), rows[perm])
     return out[:n]
+
+
+# places (ranks plus sorted positions) of one warp's run in the segsum kernel:
+# ITEMS of csrc/segsum.cu
+SEGSUM_RUN_PLACES = 128
+
+
+def segsum_runs(
+    rank_starts: torch.Tensor,  # (N+1,)
+    n: int,
+    num_rows: int,  # B, the pair list's length (rank_starts[n] <= B)
+    places: int = SEGSUM_RUN_PLACES,
+) -> torch.Tensor:
+    """The segsum kernel's owner rule, its plain mirror: (W, 4) int64, a row
+    per warp run of the launch, W = ceil((n + num_rows) / places): (first
+    rank the warp owns, ranks it owns, first position, end position).
+
+    Rank r's place in the merge of ranks and sorted positions is
+    r + rank_starts[r]; its positions follow it. Warp w owns the ranks whose
+    place lies in [w * places, (w + 1) * places) and sums their whole
+    segments, rank_starts[first] up to rank_starts[first + owned], however
+    far past its run they reach. So every rank has one owner, the warps'
+    positions follow one another, and a warp holds at most `places` ranks."""
+    rs = rank_starts.to(torch.int64)
+    dev = rs.device
+    place = torch.arange(n, device=dev) + rs[:n]
+    warps = -(-(n + num_rows) // places)
+    runs = torch.arange(warps + 1, device=dev) * places
+    edge = torch.searchsorted(place, runs)  # first rank placed at or past each run
+    first, end = edge[:-1], edge[1:]
+    return torch.stack([first, end - first, rs[first], rs[end]], dim=1)
 
 
 RasterFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]

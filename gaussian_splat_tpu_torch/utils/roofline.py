@@ -1,4 +1,4 @@
-"""Roofline bounds of the CUDA raster kernels on one NVIDIA H100.
+"""Roofline bounds of the port's CUDA kernels on one NVIDIA H100.
 
 Counterpart of gaussian_splat_tpu/utils/roofline.py, whose v5e peaks and
 Mosaic pass counts do not apply to the port. The bound of a kernel's call is
@@ -40,7 +40,6 @@ FLOPS_PER_KEPT_STEP_BWD = 58
 TABLE_COLS = 12  # floats per row of the splat table and of a gradient row
 F32 = 4
 I32 = 4
-I64 = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,11 +98,22 @@ def backward_cost(n_splats: int, pairs: int, num_tiles: int, width: int,
 
 
 def segsum_cost(n_splats: int, pairs: int) -> KernelCost:
-    """segsum: reads the real pairs' rows and permutation entries and
+    """segsum: reads the real pairs' rows and int32 permutation entries and
     `rank_starts`, writes the (N, 12) table gradient; one addition per value
     read."""
     return KernelCost(
-        bytes=pairs * (TABLE_COLS * F32 + I64) + (n_splats + 1) * I32
+        bytes=pairs * (TABLE_COLS * F32 + I32) + (n_splats + 1) * I32
         + n_splats * TABLE_COLS * F32,
         flops=pairs * TABLE_COLS,
+    )
+
+
+def rank_perm_cost(n_splats: int, pairs: int, num_rows: int) -> KernelCost:
+    """rank_perm: reads the real pairs' emission slots and ranks and
+    `rank_starts`, writes the (num_rows,) int32 permutation (padding rows
+    included); a handful of integer operations a pair, counted as none
+    beside the bytes."""
+    return KernelCost(
+        bytes=pairs * 2 * I32 + (n_splats + 1) * I32 + num_rows * I32,
+        flops=0,
     )

@@ -66,7 +66,8 @@ def test_pyproject_ships_the_port_and_its_kernel_sources():
     assert "gaussian_splat_tpu*" in data["tool"]["setuptools"]["packages"]["find"]["include"]
     pkg_data = data["tool"]["setuptools"]["package-data"]["gaussian_splat_tpu_torch"]
     assert "csrc/*.cu" in pkg_data and "csrc/*.cuh" in pkg_data
-    for name in ("raster_fwd.cu", "raster_bwd.cu", "segsum.cu", "raster_common.cuh"):
+    for name in ("raster_fwd.cu", "raster_bwd.cu", "rank_perm.cu", "segsum.cu",
+                 "raster_common.cuh"):
         assert (PKG / "csrc" / name).exists(), name
     # the native PLY loader's source is the port's own copy, shipped as data
     assert data["tool"]["setuptools"]["package-data"]["gaussian_splat_tpu_torch.native"] == ["*.cpp"]
@@ -105,7 +106,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         _build.load_library("raster_fwd")
-    assert _build.kernel_names() == ["raster_bwd", "raster_fwd", "segsum"]
+    assert _build.kernel_names() == ["rank_perm", "raster_bwd", "raster_fwd", "segsum"]
     for name in _build.kernel_names():
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             _build.load_library(name)

@@ -16,7 +16,7 @@ from gaussian_splat_tpu.ops import tile_raster as jax_tile
 from gaussian_splat_tpu.ops.projection import project_gaussians as jax_project
 from gaussian_splat_tpu_torch import convert
 from gaussian_splat_tpu_torch.config import RenderConfig as TorchConfig
-from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster
+from gaussian_splat_tpu_torch.ops import binning, cuda_raster, tile_raster
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 from gaussian_splat_tpu_torch.ops.render import render as torch_render
 
@@ -238,12 +238,15 @@ def test_cuda_backward_is_not_routed_to_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(tile_raster, "raster_backward_torch", plain)
     monkeypatch.setattr(tile_raster, "segment_sum_torch", plain)
+    monkeypatch.setattr(binning, "rank_permutation_from_sort", plain)
     monkeypatch.setattr(cuda_raster, "_launch_backward", launcher("raster_bwd"))
+    monkeypatch.setattr(cuda_raster, "_launch_rank_perm", launcher("rank_perm"))
     monkeypatch.setattr(cuda_raster, "_launch_segsum", launcher("segsum"))
     x = OnCuda()
     assert cuda_raster.raster_backward(x, x, x, x, x, x, x, x, 8, 8, TorchConfig()) == "launched"
+    assert cuda_raster.rank_permutation_from_sort(x, x, x, TorchConfig()) == "launched"
     assert cuda_raster.segment_sum(x, x, x, 4) == "launched"
-    assert calls == ["raster_bwd", "segsum"]
+    assert calls == ["raster_bwd", "rank_perm", "segsum"]
 
     # and the other way round: CPU tensors take the plain versions, no launch
     monkeypatch.undo()

@@ -263,7 +263,7 @@ def test_segment_sum_against_a_loop(n, b_rows, seed):
     perm = tile_raster.rank_permutation(
         torch.from_numpy(pair_gauss), torch.from_numpy(rank_starts), n
     )
-    assert perm.dtype == torch.int64
+    assert perm.dtype == torch.int32
     assert sorted(perm.tolist()) == list(range(b_rows))
     assert perm[:real].tolist() == np.argsort(ranks, kind="stable").tolist()
     for fn in (tile_raster.segment_sum_torch, cuda_raster.segment_sum):
