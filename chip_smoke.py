@@ -1,13 +1,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                     # every phase; one card is enough
+    python3 chip_smoke.py --only multi_gpu    # the multi-card phase alone
 
-Drives the port's three paths on the GPU through the entry points a user
-calls — serving frames, training, and the interactive viewer — builds every
-hand-written CUDA kernel from csrc/, holds each against its plain PyTorch
-version on the card, and shows that each path went through its kernels
-(launch counts, set to 0 just before a path and read just after it). One
-JSON object per line:
+Drives the port's paths on the GPU through the entry points a user calls —
+serving frames, training, the interactive viewer, and the sharded path —
+builds every hand-written CUDA kernel from csrc/, holds each against its
+plain PyTorch version on the card, and shows that each path went through its
+kernels (launch counts, set to 0 just before a path and read just after it).
+One JSON object per line:
 
   env        GPU name and power limit (as nvidia-smi prints them), versions
   build      seconds to build csrc/, the libraries, the compiler's report
@@ -29,6 +30,12 @@ JSON object per line:
              hash, the same frame; a syntax error: refused, the last good
              build keeps serving); one frame under the profiler trace, with
              the device's busy share of it
+  band_path  the sharded path on one card: the same scene as 4 bands in one
+             process through the ranks' own functions, both exchanges, held
+             against the single-card frame (bitwise, or within ATOL/RTOL
+             where the records differ, said so) and gradients; every band's
+             sentinels 0, 4 launches of each kernel a frame; per band its
+             pairs and the band kernels' times
   kernels    each kernel vs its plain version: errors, times, bound (from
              gaussian_splat_tpu_torch/utils/roofline.py), launches on each
              path; the raster kernels' own count of kept steps vs the plain
@@ -39,14 +46,24 @@ JSON object per line:
              pair (the host's time to issue it included); beside it
              `kernel_ms_back_to_back` (calls issued back to back) and, for
              the backward's reduction, the profiler's `device_ms`
+             Band cases (tile_row0 > 0) at small shapes and at full size.
   cli        `cli render`, `cli train`, `cli view` (served over HTTP, then
              terminated) and `cli validate` as subprocesses
+  multi_gpu  with two cards or more: one process a card over NCCL,
+             make_mesh -> shard_model -> render_sharded at full width, both
+             exchanges (rank 0's frame vs the single card's, stats of every
+             band, gradients gathered to rank 0, two runs bitwise equal, a
+             tiny all_to_all buffer reporting its drops), fit(mesh=) for a
+             few steps against the single card's fit; frame, step and
+             exchange times. With one card: {"phase": "multi_gpu", "ran":
+             false, "cards": 1}
   last line  {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 Any failed check raises: the process exits non-zero and prints no last line.
 Without a GPU it exits with code 2 before running anything.
 """
 
+import argparse
 import copy
 import dataclasses
 import io
@@ -61,6 +78,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -87,8 +105,11 @@ from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
     _effective_opacities, _project_and_shade, measure_pair_costs,
     measure_splat_contributions,
 )
+from gaussian_splat_tpu_torch.parallel import sharded_render as sharded  # noqa: E402
 from gaussian_splat_tpu_torch.train import trainer  # noqa: E402
-from gaussian_splat_tpu_torch.train.checkpoint import latest_step  # noqa: E402
+from gaussian_splat_tpu_torch.train.checkpoint import (  # noqa: E402
+    latest_step, restore_checkpoint,
+)
 from gaussian_splat_tpu_torch.train.dataset import orbit_dataset  # noqa: E402
 from gaussian_splat_tpu_torch.train.loss import photometric_loss  # noqa: E402
 from gaussian_splat_tpu_torch.utils import roofline  # noqa: E402
@@ -108,6 +129,13 @@ GRAD_RTOL, GRAD_ATOL_REL = 3e-3, 5e-6
 GOLDEN_LIMIT = 2e-3
 FIT_STEPS, ADC_STEPS, ADC_RESUME_STEPS, ADC_VIEWS = 6, 6, 8, 4
 LOD_PAIRS = 0.1  # the viewer's drag budget: a tenth of the frame's pair cost
+BANDS = 4  # the sharded path's target layout: 4 cards, 17 of the 68 tile rows each
+FULL_BAND = 2  # the full-size band case of the kernels line: tile_row0 = 34
+FULL_BAND_CASE = f"bench_full_band{FULL_BAND}of{BANDS}"
+SMALL_BAND_CASES = ("random120_96x64", "deep200_64x64", "random120_100x70_tiles20x10")
+MULTI_GPU_TIMEOUT = 900  # seconds for every rank of the multi_gpu phase to finish
+FIT_TRACK_RTOL = 1e-3  # fit(mesh=)'s losses against the single card's, relative
+SENTINELS = ("overflow", "tier_overflow", "dropped_gaussians")  # must be 0 on every band
 JPEG_PSNR_MIN = 35.0  # dB: a served frame, decoded, vs render_frame's pixels
 HTTP_TIMEOUT = 120  # seconds, every socket operation and the CLI's start-up
 FULL_FRAMES = 4  # full frames served before the drag
@@ -297,43 +325,58 @@ def raster_inputs(model, camera, config):
     them: (proj, colors, opacities), binning, the raster stage's arguments."""
     proj, colors = _project_and_shade(model, camera, config)
     opacities = _effective_opacities(model, proj, config)
-    binning = bin_gaussians(proj, camera.width, camera.height, config, opacities=opacities)
-    table = tile_raster.build_splat_table(proj, colors, opacities, binning.order, config)
+    binning, table = tile_raster.bin_and_table(
+        proj, colors, opacities, camera.width, camera.height, config)
     args = (table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts)
     return (proj, colors, opacities), binning, args
 
 
 @torch.no_grad()
-def count_steps(args, walked, width, height, config):
+def band_raster_inputs(model, camera, config, ndev, band, exchange="all_gather"):
+    """Band `band` of `ndev` through the sharded path's own functions, in
+    this process: the model's blocks packed and exchanged, the band's
+    records made the tiled render's inputs (`sharded_render._band_inputs`),
+    binned and tabled. Returns (binning, raster args, tile_row0, band_h)."""
+    cfg = dataclasses.replace(config, shard_exchange=exchange)
+    plan = sharded.band_plan(cfg, model.num_gaussians, camera.height, ndev)
+    received = sharded._records_in_process(model, camera, cfg, plan)[0][band]
+    inputs, band_args = sharded._band_inputs(received, band, plan, exchange == "all_gather")
+    binning, table = tile_raster.bin_and_table(
+        *inputs, camera.width, plan.band_h, cfg, **band_args)
+    args = (table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts)
+    return binning, args, band_args["tile_row0"], plan.band_h
+
+
+@torch.no_grad()
+def count_steps(args, walked, width, height, config, tile_row0=0):
     """The (pixel, pair) steps that this run's data asks of raster_fwd, counted
     in plain torch over the pairs each tile walked before it left its loop
-    (`walked`, read back from the kernel) and the pixels inside the image:
-    (all steps, steps that pass the keep test, (warp, pair)s that the plain
-    mirror of the kernels' per-warp cull lets through)."""
+    (`walked`, read back from the kernel) and the pixels inside the image (a
+    band's `height` rows from tile row `tile_row0`): (all steps, steps that
+    pass the keep test, (warp, pair)s that the plain mirror of the kernels'
+    per-warp cull lets through)."""
     table, pair_gauss, tile_offsets, tile_counts = args
     tx_n = config.tiles_x(width)
     tw, th = config.tile_width, config.tile_height
-    rects = torch.from_numpy(tile_raster.tile_warp_rects(tw, th)).to(table.device)
+    y_end = tile_row0 * th + height  # the band's last pixel row, global, + 1
     steps = kept = live_warp_pairs = 0
     for t0, t1 in tile_raster.tile_batches(tile_offsets, tile_counts, 1 << 16):
         rows, local_tile, start, px, py, sigma = tile_raster.pair_pixel_sigma(
-            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
+            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1),
+            tile_row0,
         )
         tile = local_tile + t0
         index_in_tile = (
             torch.arange(rows.shape[0], device=rows.device) + start - tile_offsets[tile]
         )
-        live = (index_in_tile < walked[tile])[:, None] & (px < width) & (py < height)
+        live = (index_in_tile < walked[tile])[:, None] & (px < width) & (py < y_end)
         bound = rows[:, tile_raster.COL_BOUND : tile_raster.COL_BOUND + 1]
         steps += int(live.sum())
         kept += int((live & (sigma >= 0.0) & (sigma <= bound)).sum())
         # each warp's pixel-centre rectangle in the pair's tile: (b, warps)
-        tx0 = ((tile % tx_n) * tw)[:, None]
-        ty0 = (torch.div(tile, tx_n, rounding_mode="floor") * th)[:, None]
-        corners = (tx0 + rects[:, 0], tx0 + rects[:, 1], ty0 + rects[:, 2], ty0 + rects[:, 3])
         miss = tile_raster.extent_misses_rect(
             tile_raster.splat_extent_torch(rows)[:, None, :],
-            *(v.to(torch.float32) + 0.5 for v in corners))
+            *tile_raster.warp_pixel_rects(tile, tx_n, tw, th, tile_row0))
         live_warp_pairs += int((~miss & (index_in_tile < walked[tile])[:, None]).sum())
     return steps, kept, live_warp_pairs
 
@@ -350,37 +393,44 @@ def grad_errors(got, want, floor=0.0):
 
 
 @torch.no_grad()
-def compare_kernels(name, model, camera, config, reps, tamper=None):
+def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
     """The four kernels vs their plain versions on one frame's binning:
     {kernel name: case}. The backward kernels get seeded cotangents of unit
     scale, and are run twice to show that their results are bitwise equal.
     Both raster kernels also count their kept steps and the (warp, pair)s
-    their cull let through; the first must equal the plain count."""
-    w, h = camera.width, camera.height
-    _, binning, args = raster_inputs(model, camera, config)
+    their cull let through; the first must equal the plain count. `band`
+    (ndev, b): band b of ndev as the sharded path bins it (tile_row0 > 0 for
+    b > 0), the band form of the raster kernels."""
+    w = camera.width
+    if band is None:
+        _, binning, args = raster_inputs(model, camera, config)
+        row0, h = 0, camera.height
+    else:
+        binning, args, row0, h = band_raster_inputs(model, camera, config, *band)
     if tamper is not None:
         args = (tamper(args[0]), *args[1:])
     table, pair_gauss, tile_offsets, tile_counts = args
     rank_starts = binning.rank_starts
-    n = model.num_gaussians
+    n = binning.num_active  # the table's rows
     pairs = int(binning.num_pairs) - int(binning.overflow)
-    shape = {"case": name, "n_splats": n, "width": w, "height": h, "pairs": pairs}
+    shape = {"case": name, "n_splats": model.num_gaussians, "table_rows": n,
+             "width": w, "height": h, "tile_row0": row0, "pairs": pairs}
 
     # -- raster_fwd --------------------------------------------------------
     walked = torch.zeros_like(tile_counts)
     n_tiles = tile_counts.numel()
     counted = torch.zeros((n_tiles, 2), dtype=torch.int32, device=DEVICE)
     rgbd, t_final = cuda_raster.raster_forward(
-        *args, w, h, config, walked=walked, counters=counted)
-    plain_rgbd, plain_t = cuda_raster.raster_forward(*args, w, h, config)
-    want = tile_raster.raster_forward_torch(*args, w, h, config)
+        *args, w, h, config, walked=walked, counters=counted, tile_row0=row0)
+    plain_rgbd, plain_t = cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0)
+    want = tile_raster.raster_forward_torch(*args, w, h, config, row0)
     torch.cuda.synchronize()
     got_all = torch.cat([rgbd, t_final[..., None]], dim=-1)
     want_all = torch.cat([want[0], want[1][..., None]], dim=-1)
     check(bool(torch.isfinite(got_all).all()), f"{name}: raster_fwd output not finite")
     err = (got_all - want_all).abs()
     over = (err > ATOL + RTOL * want_all.abs()).any(dim=-1)
-    steps, kept_steps, live_plain = count_steps(args, walked, w, h, config)
+    steps, kept_steps, live_plain = count_steps(args, walked, w, h, config, row0)
     warps = -(-config.tile_pixels // 32)
     warp_pairs = int(walked.sum()) * warps
 
@@ -405,11 +455,12 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         **shape, "walked_pairs": int(walked.sum()), "steps": steps,
         "kept_steps": kept_steps, **cull_fields("raster_fwd", counted),
         "max_abs_err": float(err.max()), "n_over": int(over.sum()),
-        "kernel_ms": time_ms(lambda: cuda_raster.raster_forward(*args, w, h, config), reps),
+        "kernel_ms": time_ms(
+            lambda: cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0), reps),
         "kernel_ms_back_to_back": time_back_to_back_ms(
-            lambda: cuda_raster.raster_forward(*args, w, h, config), reps),
+            lambda: cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0), reps),
         "plain_ms": time_ms(
-            lambda: tile_raster.raster_forward_torch(*args, w, h, config),
+            lambda: tile_raster.raster_forward_torch(*args, w, h, config, row0),
             max(1, reps // 4), warmup=0),
         # each input read once, each output written once; the operations that
         # this run's data needs
@@ -422,10 +473,11 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
     d_t = torch.randn((h, w), generator=gen, device=DEVICE)
     bwd_args = (*args, rgbd, t_final, d_rgbd, d_t, w, h, config)
     counted = torch.zeros_like(counted)
-    rows = cuda_raster.raster_backward(*bwd_args, walked=walked, counters=counted)
-    rows_again = cuda_raster.raster_backward(*bwd_args, walked=walked)
+    rows = cuda_raster.raster_backward(
+        *bwd_args, walked=walked, counters=counted, tile_row0=row0)
+    rows_again = cuda_raster.raster_backward(*bwd_args, walked=walked, tile_row0=row0)
     t0 = time.perf_counter()
-    want_rows = tile_raster.raster_backward_torch(*bwd_args, walked=walked)
+    want_rows = tile_raster.raster_backward_torch(*bwd_args, walked=walked, tile_row0=row0)
     torch.cuda.synchronize()
     plain_bwd_ms = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(rows).all()), f"{name}: raster_bwd output not finite")
@@ -439,9 +491,11 @@ def compare_kernels(name, model, camera, config, reps, tamper=None):
         "bitwise_repeatable": bool(torch.equal(rows, rows_again)),
         "pad_columns_and_rows_zero": tail_clean,
         "kernel_ms": time_ms(
-            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), reps),
+            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked, tile_row0=row0),
+            reps),
         "kernel_ms_back_to_back": time_back_to_back_ms(
-            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked), reps),
+            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked, tile_row0=row0),
+            reps),
         "plain_ms": plain_bwd_ms,
         **roofline.backward_cost(
             n, pairs, n_tiles, w, h, num_rows, steps, kept_steps).fields(),
@@ -570,11 +624,20 @@ def segsum_ragged(reps):
 def phase_kernels(model, camera, config):
     """{kernel name: [case, ...]} over the small shapes and the full frame,
     and segsum's ragged case at full size."""
+    scenes = small_scenes()
     runs = [
         compare_kernels(name, m, cam, cfg, reps=5, tamper=tamper)
-        for name, m, cam, cfg, tamper in small_scenes()
+        for name, m, cam, cfg, tamper in scenes
     ]
+    # the band form (tile_row0 > 0): the second of two bands, binned as the
+    # sharded path bins it; the third scene's 7 tile rows pad to 8
+    by_name = {scene[0]: scene for scene in scenes}
+    for name in SMALL_BAND_CASES:
+        _, m, cam, cfg, _ = by_name[name]
+        runs.append(compare_kernels(f"{name}_band1of2", m, cam, cfg, reps=5, band=(2, 1)))
     runs.append(compare_kernels("bench_full", model, camera, config, reps=10))
+    runs.append(compare_kernels(FULL_BAND_CASE, model, camera, config, reps=10,
+                                band=(BANDS, FULL_BAND)))
     cases = {k: [run[k] for run in runs] for k in cuda_raster.KERNELS}
     cases["segsum"].append(segsum_ragged(reps=10))
     for kernel, kernel_cases in cases.items():
@@ -1334,6 +1397,338 @@ def phase_cli(workdir, ply_path):
           f"cli validate: {res.stdout} {res.stderr[-2000:]}")
 
 
+def as_output(out):
+    """What seeded_loss reads of a RenderOutput, from a ShardedRender too."""
+    if hasattr(out, "alpha"):
+        return out
+    return types.SimpleNamespace(image=out.image, depth=out.depth, alpha=1.0 - out.t_final)
+
+
+def leaf_grads(model, out, seed):
+    """{leaf: gradient} of seeded_loss(out) (the model's .grad cleared first)."""
+    model.zero_grad(set_to_none=True)
+    seeded_loss(as_output(out), seed).backward()
+    grads = {k: getattr(model, k).grad.detach().clone() for k in model.LEAVES}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_report(got, want):
+    """Per leaf (max abs error, elements over tolerance), rows flattened."""
+    report = {}
+    for k in want:
+        g, w = (x.reshape(x.shape[0], -1) for x in (got[k], want[k]))
+        err, over = grad_errors(g, w)
+        report[k] = {"max_abs_err": err, "n_over": over, "finite": bool(torch.isfinite(g).all())}
+    return report
+
+
+def ulp_diff(a, b):
+    """Largest distance in float32 ulps between two tensors' finite entries
+    (0: bitwise equal there)."""
+    both = torch.isfinite(a) & torch.isfinite(b)
+    ia, ib = a[both].view(torch.int32).long(), b[both].view(torch.int32).long()
+    # order the bit patterns like the floats: negative values mirrored
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def records_premise(model, camera, config, ndev):
+    """The premise of a bitwise sharded image: the records that projection
+    computes on each of ndev blocks equal, bit for bit, the rows it computes
+    on all N splats. Returns (equal, largest ulp distance, max abs diff)."""
+    with torch.no_grad():
+        whole = sharded._pack_features(model, camera, config)
+        plan = sharded.band_plan(config, model.num_gaussians, camera.height, ndev)
+        blocks = sharded._records_in_process(model, camera, config, plan)[0][0]
+    return (bool(torch.equal(whole, blocks)), ulp_diff(whole, blocks),
+            float((whole - blocks).abs().nan_to_num(0.0).max()))
+
+
+@torch.no_grad()
+def image_agreement(got, want, bitwise):
+    """Report of a sharded frame against the single-card render: bitwise
+    equal, or (when the records differ) within ATOL/RTOL."""
+    report = {}
+    for name, g, w in (("image", got.image, want.image), ("alpha", 1.0 - got.t_final, want.alpha),
+                       ("depth", got.depth, want.depth)):
+        err = (g - w).abs()
+        report[name] = {"bitwise_equal": bool(torch.equal(g, w)), "max_abs_err": float(err.max()),
+                        "n_over": int((err > ATOL + RTOL * w.abs()).sum())}
+    ok = all(r["bitwise_equal"] if bitwise else r["n_over"] == 0 for r in report.values())
+    return ok, report
+
+
+def band_kernel_ms(model, camera, config, ndev, reps):
+    """Per band: pairs, the table's rows and kernel_ms of raster_fwd and
+    raster_bwd (seeded unit cotangents) on that band's own inputs."""
+    bands = []
+    for b in range(ndev):
+        binning, args, row0, h = band_raster_inputs(
+            model, camera, config, ndev, b, config.shard_exchange)
+        walked = torch.zeros_like(args[3])
+        with torch.no_grad():
+            rgbd, t_final = cuda_raster.raster_forward(
+                *args, WIDTH, h, config, walked=walked, tile_row0=row0)
+            gen = torch.Generator(device=DEVICE).manual_seed(7)
+            cot = (torch.randn((h, WIDTH, 4), generator=gen, device=DEVICE),
+                   torch.randn((h, WIDTH), generator=gen, device=DEVICE))
+            bwd_args = (*args, rgbd, t_final, *cot, WIDTH, h, config)
+            bands.append({
+                "band": b, "tile_row0": row0, "num_pairs": int(binning.num_pairs),
+                "table_rows": binning.num_active,
+                "raster_fwd_kernel_ms": time_ms(lambda: cuda_raster.raster_forward(
+                    *args, WIDTH, h, config, tile_row0=row0), reps),
+                "raster_bwd_kernel_ms": time_ms(lambda: cuda_raster.raster_backward(
+                    *bwd_args, walked=walked, tile_row0=row0), reps),
+            })
+    return bands
+
+
+def phase_band_path(model, camera, smi):
+    """The sharded path on one card: BANDS bands in this process through the
+    ranks' own functions (`sharded_render.render_bands_in_process`: pack,
+    exchange, render one band), both exchanges, held against the
+    single-card render — the frame bitwise (or, where the records differ,
+    within ATOL/RTOL), every band's sentinels 0, the gradients of a seeded
+    loss within GRAD_RTOL/GRAD_ATOL_REL — and BANDS launches of each kernel a
+    frame (forward and backward)."""
+    config = calibrate_render_config(model, camera, RenderConfig(), mesh_ndev=BANDS)
+    premise, ulps, diff = records_premise(model, camera, config, BANDS)
+    single = render(model, camera, config)
+    want = leaf_grads(model, single, 13)
+    report = {"records_equal": premise, "records_max_ulps": ulps, "records_max_abs_diff": diff,
+              "shard_capacity_margin": config.shard_capacity_margin}
+    launches = dict.fromkeys(cuda_raster.KERNELS, 0)
+    for exchange in ("all_gather", "all_to_all"):
+        cfg = dataclasses.replace(config, shard_exchange=exchange)
+        plan = sharded.band_plan(cfg, model.num_gaussians, HEIGHT, BANDS)
+        cuda_raster.reset_launch_counts()
+        out = sharded.render_bands_in_process(model, camera, cfg, BANDS)
+        got = leaf_grads(model, out, 13)
+        frame_launches = dict(cuda_raster.launch_counts)
+        for k in cuda_raster.KERNELS:
+            launches[k] += frame_launches[k]
+        ok, agreement = image_agreement(out, single, premise)
+        stats = {k: v.tolist() for k, v in out.stats._asdict().items()}
+        grads = grad_report(got, want)
+        with torch.no_grad():
+            frame_ms = time_ms(
+                lambda: sharded.render_bands_in_process(model, camera, cfg, BANDS), 3)
+        report[exchange] = {
+            "image": agreement, "stats": stats, "grads": grads, "launches": frame_launches,
+            "max_active": plan.max_active if exchange == "all_gather" else None,
+            "a2a_cap": plan.a2a_cap if exchange == "all_to_all" else None,
+            "frame_ms_bands_in_process": frame_ms,
+            "bands": band_kernel_ms(model, camera, cfg, BANDS, reps=5),
+        }
+        check(ok, f"band_path {exchange}: the stitched frame differs from the single "
+              f"card's (records equal: {premise}, {ulps} ulps): {agreement}")
+        check(all(v == 0 for k in SENTINELS for v in stats[k]),
+              f"band_path {exchange}: a band's sentinel fired: {stats}")
+        check(all(g["n_over"] == 0 and g["finite"] for g in grads.values()),
+              f"band_path {exchange}: gradients differ from the single card's: {grads}")
+        check(frame_launches == dict.fromkeys(cuda_raster.KERNELS, BANDS),
+              f"band_path {exchange}: expected {BANDS} launches of each kernel a frame: "
+              f"{frame_launches}")
+    emit("band_path", gpu=smi, n_splats=model.num_gaussians, width=WIDTH, height=HEIGHT,
+         bands=BANDS, single_num_pairs=int(single.stats.num_pairs),
+         rtol=GRAD_RTOL, atol_rel=GRAD_ATOL_REL, **report)
+    return launches
+
+
+def sharded_checkpoint(ckpt, fitted, tc, mesh, gathered, lead):
+    """The newest checkpoint of fit(mesh=): on rank 0, the whole model (N
+    rows) bit for bit the ranks' fitted blocks gathered; on every rank, its
+    block restored bit for bit."""
+    whole = {k: gathered(getattr(fitted, k).detach()) for k in fitted.LEAVES}
+    restored = restore_checkpoint(ckpt, trainer.create_train_state(fitted, tc), mesh)
+    report = {"step": restored.step, "restored_rank_bitwise": all(
+        torch.equal(getattr(restored.model, k), getattr(fitted, k)) for k in fitted.LEAVES)}
+    check(restored.step == tc.num_steps and report["restored_rank_bitwise"],
+          f"multi_gpu checkpoint: this rank's block did not come back: {report}")
+    if lead:
+        path = os.path.join(ckpt, f"step_{latest_step(ckpt):08d}.pt")
+        saved = torch.load(path, map_location=DEVICE, weights_only=True)
+        report.update(files=sorted(os.listdir(ckpt)),
+                      rows=int(saved["model"]["means"].shape[0]),
+                      moment_rows=int(saved["optimizer"]["state"][0]["exp_avg"].shape[0]),
+                      saved_bitwise=all(torch.equal(saved["model"][k], whole[k]) for k in whole))
+        check(report["rows"] == report["moment_rows"] == N_SPLATS and report["saved_bitwise"],
+              f"multi_gpu checkpoint: rank 0's file is not the whole fitted model: {report}")
+    return report
+
+
+def _multi_gpu_rank(rank, ndev, port, out_path):
+    """One rank of the multi_gpu phase (run in its own process on cuda:rank).
+    Rank 0 writes the phase's report to out_path."""
+    from gaussian_splat_tpu_torch.parallel.mesh import make_mesh, shard_model
+
+    mesh = make_mesh(ndev, device=DEVICE, rank=rank, init_method=f"tcp://127.0.0.1:{port}")
+    group = mesh.get_group("dev")
+    model, camera = bench_scene()  # the same seeded scene on every card
+    config = calibrate_render_config(model, camera, RenderConfig(), mesh_ndev=ndev)
+    block = shard_model(model, mesh)
+    lead = rank == 0
+    report = {"ndev": ndev, "shard_capacity_margin": config.shard_capacity_margin}
+    if lead:
+        premise, ulps, _ = records_premise(model, camera, config, ndev)
+        single = render(model, camera, config)
+        want = leaf_grads(model, single, 13)
+        report.update(records_equal=premise, records_max_ulps=ulps,
+                      single_num_pairs=int(single.stats.num_pairs))
+
+    def gathered(t):
+        """Every rank's block of t, stacked in rank order (on every rank)."""
+        out = t.new_empty((ndev * t.shape[0], *t.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, t.contiguous(), group=group)
+        return out
+
+    for exchange in ("all_gather", "all_to_all"):
+        cfg = dataclasses.replace(config, shard_exchange=exchange)
+        cuda_raster.reset_launch_counts()
+        out = sharded.render_sharded(block, camera, cfg, mesh)
+        launches = dict(cuda_raster.launch_counts)
+        block.zero_grad(set_to_none=True)
+        seeded_loss(as_output(out), 13).backward()
+        got = {k: gathered(getattr(block, k).grad) for k in block.LEAVES}
+        block.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            again = sharded.render_sharded(block, camera, cfg, mesh)
+            torch.cuda.synchronize()
+            frame_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                sharded.render_sharded(block, camera, cfg, mesh)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            plan = sharded.band_plan(cfg, model.num_gaussians, HEIGHT, ndev)
+            feats = sharded._pack_features(block, camera, cfg)
+            if exchange == "all_gather":
+                def exchange_fn():
+                    return sharded._Gather.apply(feats, group, False)
+                sent = feats.numel() * 4  # each rank's records, to every other rank
+                moved = sent * (ndev - 1)
+            else:
+                send, _ = sharded._route(feats, plan)
+
+                def exchange_fn():
+                    return sharded._AllToAll.apply(send.reshape(-1, sharded.NFEAT_X), group)
+                sent = send.numel() * 4
+                moved = sent * (ndev - 1) // ndev
+            exchange_ms = time_ms(exchange_fn, 5)
+        stats = {k: v.tolist() for k, v in out.stats._asdict().items()}
+        entry = {
+            "launches_rank": launches, "stats": stats, "num_pairs_per_band": stats["num_pairs"],
+            "two_runs_bitwise_equal": bool(torch.equal(out.image, again.image)),
+            "frame_ms_sharded": statistics.median(frame_ms), "frame_ms_all": frame_ms,
+            "exchange_ms": exchange_ms, "exchange_bytes_sent_per_rank": sent,
+            "exchange_bytes_received_per_rank": moved,
+            "records_bytes_total": model.num_gaussians * sharded.NFEAT_X * 4,
+            # each rank receives `moved` bytes; NVLink moves 450 GB/s each way a card
+            "exchange_bound_ms": roofline.nvlink_ms(moved),
+        }
+        check(entry["two_runs_bitwise_equal"], f"multi_gpu {exchange}: two runs differ")
+        check(all(v == 0 for k in SENTINELS for v in stats[k]),
+              f"multi_gpu {exchange}: a band's sentinel fired: {stats}")
+        check(launches["raster_fwd"] == 1, f"multi_gpu {exchange}: launches {launches}")
+        if lead:
+            ok, agreement = image_agreement(out, single, premise)
+            grads = grad_report(got, want)
+            entry.update(image=agreement, grads=grads)
+            check(ok, f"multi_gpu {exchange}: rank 0's frame differs from the single card's: "
+                  f"{agreement}")
+            check(all(g["n_over"] == 0 and g["finite"] for g in grads.values()),
+                  f"multi_gpu {exchange}: gradients differ from the single card's: {grads}")
+        report[exchange] = entry
+
+    # a tiny all_to_all send buffer must drop splats, and say so
+    tiny = dataclasses.replace(config, shard_exchange="all_to_all", a2a_capacity_factor=0.25,
+                               shard_capacity_floor=0)
+    with torch.no_grad():
+        drops = sharded.render_sharded(block, camera, tiny, mesh).stats.dropped_gaussians
+    report["tiny_a2a_dropped_gaussians"] = drops.tolist()
+    check(int(drops.sum()) > 0, "multi_gpu: a tiny all_to_all buffer reported no drop")
+
+    # fit(mesh=): every rank fits its block; rank 0 also fits the whole model
+    truth = perturbed(model, seed=3)
+    with torch.no_grad():
+        target = render(truth, camera, config).image.contiguous()
+    torch.distributed.broadcast(target, src=0, group=group)
+    # checkpoints at half way and at the end: rank 0 writes the whole state
+    ckpt = os.path.join(os.path.dirname(out_path), "ckpt")
+    tc = TrainConfig(num_steps=FIT_STEPS, checkpoint_dir=ckpt, checkpoint_every=FIT_STEPS // 2)
+    step_ms, save_ms, clock = [], [], {"t": None}
+
+    def on_step(i, loss, state):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        # the interval that ends at step i holds the save after step i - 1
+        # when that one was due: it is kept apart
+        if clock["t"] is not None:
+            (save_ms if i % tc.checkpoint_every == 0 else step_ms).append(
+                (now - clock["t"]) * 1e3)
+        clock["t"] = now
+
+    cuda_raster.reset_launch_counts()
+    fitted, history = fit(block, camera, target, config, tc, mesh=mesh, log_every=1,
+                          callback=on_step)
+    fit_launches = dict(cuda_raster.launch_counts)
+    report["fit"] = {"losses": history, "step_ms_sharded": statistics.median(step_ms),
+                     "step_ms_all": step_ms, "step_and_save_ms": save_ms,
+                     "launches_rank": fit_launches}
+    report["fit"]["checkpoint"] = sharded_checkpoint(ckpt, fitted, tc, mesh, gathered, lead)
+    check(len(history) == FIT_STEPS and all(np.isfinite(history)) and history[-1] < history[0],
+          f"multi_gpu fit(mesh=): the loss did not fall: {history}")
+    check(all(v == FIT_STEPS for v in fit_launches.values()),
+          f"multi_gpu fit(mesh=): expected one launch of each kernel a step: {fit_launches}")
+    if lead:
+        _, single_history = fit(model, camera, target, config, tc, log_every=1)
+        gap = max(abs(a - b) / b for a, b in zip(history, single_history))
+        report["fit"].update(single_losses=single_history, max_rel_gap=gap,
+                             max_rel_gap_limit=FIT_TRACK_RTOL)
+        check(gap <= FIT_TRACK_RTOL,
+              f"multi_gpu fit(mesh=) strays from the single card's: {history} vs {single_history}")
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+    torch.distributed.barrier(group)
+    torch.distributed.destroy_process_group()
+
+
+def phase_multi_gpu(smi):
+    """render_sharded and fit(mesh=) over every visible card, one process a
+    card over NCCL (`make_mesh` → `shard_model` → `render_sharded`), at full
+    width; the kernels are built here first, so the ranks only load them.
+    With one card it says so on one line and runs nothing."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("multi_gpu", ran=False, cards=cards)
+        return
+    t_start = time.perf_counter()
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "multi_gpu.json")
+        ctx = torch.multiprocessing.start_processes(
+            _multi_gpu_rank, args=(cards, port, out_path), nprocs=cards, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + MULTI_GPU_TIMEOUT
+        try:
+            # join raises as soon as a rank fails, and ends the others
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"multi_gpu: the ranks did not finish in {MULTI_GPU_TIMEOUT} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        with open(out_path) as f:
+            report = json.load(f)
+    emit("multi_gpu", ran=True, cards=cards, gpu=smi, n_splats=N_SPLATS, width=WIDTH,
+         height=HEIGHT, seconds=time.perf_counter() - t_start, **report)
+
+
 KERNEL_TABLE = {
     # name: (source, file:line of the TPU kernel it replaces)
     "raster_fwd": ("gaussian_splat_tpu_torch/csrc/raster_fwd.cu",
@@ -1348,62 +1743,73 @@ KERNEL_TABLE = {
 }
 
 
-def main():
+def kernel_line(cases, launches, smi):
+    """The kernels line: each kernel with its full-size cases and its
+    launches on every path."""
+    kernels = []
+    for name in cuda_raster.KERNELS:
+        full = next(c for c in cases[name] if c["case"] == "bench_full")
+        band = next((c for c in cases[name] if c["case"] == FULL_BAND_CASE), None)
+        source, replaces = KERNEL_TABLE[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(path[name] for path in launches.values()),
+            **{f"launches_{path}": counts[name] for path, counts in launches.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
+            "n_over": sum(c["n_over"] for c in cases[name]),
+            # one call per event pair (the host's time to issue it included),
+            # the measure of every slice; beside it, the time per call of
+            # calls issued back to back and the profiler's device time
+            "ms": full["kernel_ms"], "kernel_ms": full["kernel_ms"],
+            "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"], "library_ms": full.get("library_ms"),
+            "share_of_bound": full["bound_ms"] / full["kernel_ms"],
+            "kernel_ms_back_to_back": full["kernel_ms_back_to_back"],
+            "device_ms": full.get("device_ms"),
+            "perm_ms": full.get("perm_ms"), "rank_sort_ms": full.get("rank_sort_ms"),
+            "live_warp_pair_share": full.get("live_warp_pair_share"),
+            # the same at full size on band FULL_BAND of BANDS (tile_row0 34)
+            "band_case": FULL_BAND_CASE, "band_kernel_ms": band and band["kernel_ms"],
+            "band_bound_ms": band and band["bound_ms"],
+            "tolerance": (
+                {"atol": ATOL, "rtol": RTOL} if name == "raster_fwd"
+                else {"exact": True} if name == "rank_perm"
+                else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
+            ),
+            "gpu": smi, "cases": cases[name],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    check(all(k["share_of_bound"] <= 1.0 for k in kernels),
+          "a kernel reads faster than its bound: the bound's count is wrong")
+    for path, counts in launches.items():
+        want = cuda_raster.KERNELS if path != "main_path" else ("raster_fwd",)
+        check(all(counts[k] > 0 for k in want),
+              f"a kernel was never launched on {path}: {counts}")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", choices=["multi_gpu"],
+                        help="run the multi-card phase alone (after env and build)")
+    only_multi_gpu = parser.parse_args(argv).only == "multi_gpu"
+
     t_start = time.perf_counter()
     smi = phase_env()
     phase_build()
-    phase_golden()
-    phase_golden_grad()
-    phase_no_fallback()
-    model, camera = bench_scene()
-    with tempfile.TemporaryDirectory() as workdir:
-        serve_launches = phase_main_path(model, camera, smi)
-        train_launches = phase_train_path(model, camera, smi, workdir)
-        view_launches, ply_path = phase_view_path(model, camera, smi, workdir)
-        config = calibrate_render_config(model, camera, RenderConfig())
-        cases = phase_kernels(model, camera, config)
-
-        kernels = []
-        for name in cuda_raster.KERNELS:
-            full = next(c for c in cases[name] if c["case"] == "bench_full")
-            source, replaces = KERNEL_TABLE[name]
-            kernels.append({
-                "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": serve_launches[name] + train_launches[name] + view_launches[name],
-                "launches_main_path": serve_launches[name],
-                "launches_train_path": train_launches[name],
-                "launches_view_path": view_launches[name],
-                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
-                "n_over": sum(c["n_over"] for c in cases[name]),
-                # one call per event pair (the host's time to issue it
-                # included), the measure of every slice; beside it, the time
-                # per call of calls issued back to back and the profiler's
-                # device time
-                "ms": full["kernel_ms"], "kernel_ms": full["kernel_ms"],
-                "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
-                "bound_by": full["bound_by"], "library_ms": full.get("library_ms"),
-                "share_of_bound": full["bound_ms"] / full["kernel_ms"],
-                "kernel_ms_back_to_back": full["kernel_ms_back_to_back"],
-                "device_ms": full.get("device_ms"),
-                "perm_ms": full.get("perm_ms"), "rank_sort_ms": full.get("rank_sort_ms"),
-                "live_warp_pair_share": full.get("live_warp_pair_share"),
-                "tolerance": (
-                    {"atol": ATOL, "rtol": RTOL} if name == "raster_fwd"
-                    else {"exact": True} if name == "rank_perm"
-                    else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
-                ),
-                "gpu": smi, "cases": cases[name],
-            })
-        print(json.dumps({"kernels": kernels}), flush=True)
-        check(all(k["share_of_bound"] <= 1.0 for k in kernels),
-              "a kernel reads faster than its bound: the bound's count is wrong")
-        check(all(k["launches_train_path"] > 0 for k in kernels),
-              "a kernel was never launched on the training path")
-        check(kernels[0]["launches_main_path"] > 0,
-              "raster_fwd was never launched on the frame-serving path")
-        check(all(k["launches_view_path"] > 0 for k in kernels),
-              "a kernel was never launched on the interactive viewer's path")
-        phase_cli(workdir, ply_path)
+    if not only_multi_gpu:
+        phase_golden()
+        phase_golden_grad()
+        phase_no_fallback()
+        model, camera = bench_scene()
+        with tempfile.TemporaryDirectory() as workdir:
+            launches = {"main_path": phase_main_path(model, camera, smi),
+                        "train_path": phase_train_path(model, camera, smi, workdir)}
+            launches["view_path"], ply_path = phase_view_path(model, camera, smi, workdir)
+            launches["band_path"] = phase_band_path(model, camera, smi)
+            config = calibrate_render_config(model, camera, RenderConfig())
+            kernel_line(phase_kernels(model, camera, config), launches, smi)
+            phase_cli(workdir, ply_path)
+    phase_multi_gpu(smi)
     emit("done", seconds=time.perf_counter() - t_start)
 
     print(json.dumps({

@@ -2,19 +2,21 @@
 
 Same module layout and names as the JAX package beside it, so a reader finds
 each counterpart; inside, PyTorch idiom: `nn.Module` parameters, plain
-functions on tensors, explicit devices, and hand-written CUDA kernels
-(csrc/raster_fwd.cu, raster_bwd.cu, segsum.cu) behind a
+functions on tensors, explicit devices, and four hand-written CUDA kernels
+(csrc/raster_fwd.cu, raster_bwd.cu, rank_perm.cu, segsum.cu) behind a
 `torch.autograd.Function` where the JAX package has Pallas kernels.
 
-Ported so far: the frame-serving path — load/create a model, `render`,
-`Viewer.render_frame`, `cli render` — the training path — `render`'s
-gradient, the photometric loss, per-group Adam, `fit`, `fit_multiview`,
-`fit_multiview_adc` (density control at fixed N), checkpoints, `cli train` —
-and the interactive viewer — the native PLY reader (native/gsply.cpp),
-transforms.json I/O, the grid/axes overlay, the drag level-of-detail, the
-MJPEG `Viewer.serve()`, kernel hot reload, `cli view` and `cli validate` —
-with the utils (H100 roofline, numerics guards, profiler trace). Not yet:
-multi-GPU (the trainer's `mesh=` raises).
+Every module of the JAX package has its counterpart: the frame-serving path
+— load/create a model, `render`, `Viewer.render_frame`, `cli render` — the
+training path — `render`'s gradient, the photometric loss, per-group Adam,
+`fit`, `fit_multiview`, `fit_multiview_adc` (density control at fixed N),
+checkpoints, `cli train` — the interactive viewer — the native PLY reader
+(native/gsply.cpp), transforms.json I/O, the grid/axes overlay, the drag
+level-of-detail, the MJPEG `Viewer.serve()`, kernel hot reload, `cli view`
+and `cli validate` — the utils (H100 roofline, numerics guards, profiler
+trace), and multi-device rendering and training (`parallel/`: one process
+per device over `torch.distributed`, `render_sharded`, the trainer's
+`mesh=`).
 The package imports torch and numpy only; it never imports jax or anything of
 gaussian_splat_tpu.
 

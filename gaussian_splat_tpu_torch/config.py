@@ -6,8 +6,8 @@ tests compare them one by one). Dropped: the TPU-only knobs
 `tiles_per_program`, `dma_chunks`, `exact_vjp` and the 128-lane rule on
 `chunk_size`. `chunk_size` itself stays because `pair_budget` rounds to it, so
 budgets — and therefore overflow truncation — equal the reference's.
-`TrainConfig` has the reference's fields and defaults. The sharding fields
-arrive with the multi-GPU slice.
+`TrainConfig` has the reference's fields and defaults. The four sharding
+fields are the reference's, read by parallel/sharded_render.py.
 """
 
 from __future__ import annotations
@@ -72,6 +72,29 @@ class RenderConfig:
     backend: str = "auto"  # "auto": CUDA tensors → "cuda" (the kernel), CPU
     #   tensors → "torch_tile". "cuda" on CPU tensors raises; nothing falls
     #   back from the kernel to the plain compositor.
+
+    # Sharding (parallel/sharded_render.py) -----------------------------------
+    shard_exchange: str = "all_gather"  # how projected features reach the
+    #   tile-owning devices: "all_gather" (dense, 13 floats/splat — best ≤8
+    #   devices, and each device then bins only the splats intersecting its
+    #   band) or "all_to_all" (the sparse exchange: each device sends only the
+    #   splats whose rect hits the destination band — traffic and per-device
+    #   memory stay O(N/D) as the mesh grows)
+    shard_capacity_margin: float = 0.25  # all_gather path: each device bins at
+    #   most N/D + margin·N splats (the in-band compaction cap). The additive
+    #   form matches the structure of band incidence: N/D residents plus an
+    #   absolute tail of large splats whose extents cross band boundaries (the
+    #   tail barely shrinks with D). A multiplicative cap N·f/D degenerates to
+    #   "no compaction" at D=2, or drops splats at D≥4 when f is smaller; the
+    #   margin form keeps compaction effective at every D. Drops are counted
+    #   in stats.dropped_gaussians — calibrate_render_config(mesh_ndev=...)
+    #   sizes the margin per scene.
+    a2a_capacity_factor: float = 4.0  # all_to_all path: per (source, dest)
+    #   send-buffer capacity = N/D² · factor; overflow is counted per source
+    shard_capacity_floor: int = 4096  # minimum capacity regardless of factor:
+    #   small scenes (where band-splat incidence ≫ N/D, e.g. single-tile-row
+    #   bands) stay exact at negligible cost; at production N the factor term
+    #   dominates. Tests lower this to exercise the overflow accounting.
 
     @property
     def sigma_cutoff(self) -> float:

@@ -74,6 +74,9 @@
 // `counters` (optional, may be null; (T, 2) int32, zeroed by the caller)
 // receives per tile the kept steps inside the image and the (warp, pair)s
 // that were not culled, as in raster_fwd.
+//
+// Bands: `tile_row0` as in raster_fwd (the TPU kernel's `trow0`): global
+// pixel centres and cull rectangles, band-local image rows.
 
 #include "raster_common.cuh"
 
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     const float* __restrict__ d_tfinal,    // (H, W) cotangent
     float4* __restrict__ out_rows,         // (B, 3) float4: d[mx,my,A,B | C,r,g,b | depth,op,0,0]
     int* __restrict__ counters,            // (T, 2), only read when COUNT
-    int tiles_x, int tile_w, int tile_h, int width, int height,
+    int tiles_x, int tile_w, int tile_h, int width, int height, int tile_row0,
     float alpha_clamp, int batch)
 {
     __shared__ float4 rows[MAX_BATCH * ROW_F4];
@@ -149,15 +152,16 @@ __global__ void __launch_bounds__(1024) raster_bwd_kernel(
     const int warp = p >> 5;
     const int nwarps = blockDim.x >> 5;
     const int tx0 = (t % tiles_x) * tile_w;
-    const int ty0 = (t / tiles_x) * tile_h;
+    const int ty0 = (t / tiles_x) * tile_h;              // in the band's image
+    const int gy0 = ty0 + tile_row0 * tile_h;            // in the whole frame
     int lx, ly;
     tile_pixel(p, tile_w, tile_h, &lx, &ly);
     const int ix = tx0 + lx;
     const int iy = ty0 + ly;
     const bool inside = p < tile_w * tile_h && ix < width && iy < height;
     const float px = (float)ix + 0.5f;
-    const float py = (float)iy + 0.5f;
-    const WarpRect rect = warp_rect(p, tile_w, tile_h, tx0, ty0);
+    const float py = (float)(gy0 + ly) + 0.5f;
+    const WarpRect rect = warp_rect(p, tile_w, tile_h, tx0, gy0);
     const int column = warp_sum_column(lane);
 
     float4 gC = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -286,7 +290,7 @@ extern "C" int raster_bwd_launch(
     const void* t_final, const void* d_rgbd, const void* d_tfinal, void* out_rows,
     void* counters,
     int num_rows, int num_tiles, int tiles_x, int tile_w, int tile_h,
-    int width, int height, float alpha_clamp, void* stream)
+    int width, int height, int tile_row0, float alpha_clamp, void* stream)
 {
     const cudaStream_t s = (cudaStream_t)stream;
     const int threads = (tile_w * tile_h + 31) & ~31;
@@ -305,7 +309,7 @@ extern "C" int raster_bwd_launch(
             (const int*)tile_counts, (const int*)walked, (const float4*)rgbd,
             (const float*)t_final, (const float4*)d_rgbd, (const float*)d_tfinal,
             (float4*)out_rows, (int*)counters, tiles_x, tile_w, tile_h, width, height,
-            alpha_clamp, batch);
+            tile_row0, alpha_clamp, batch);
         err = (int)cudaGetLastError();
         if (err != 0) return err;
     }

@@ -82,7 +82,8 @@ __device__ __forceinline__ void tile_pixel(int p, int tile_w, int tile_h, int* l
 }
 
 // Pixel-centre rectangle [x0, x1] x [y0, y1] (image coordinates) that holds
-// every pixel of thread p's warp; (tx0, ty0) is the tile's first pixel.
+// every pixel of thread p's warp; (tx0, ty0) is the tile's first pixel in
+// the whole frame (a band's tiles lie tile_row0 tile rows down).
 struct WarpRect { float x0, x1, y0, y1; };
 
 __device__ __forceinline__ WarpRect warp_rect(int p, int tile_w, int tile_h, int tx0, int ty0)

@@ -76,6 +76,15 @@
 //
 // The layout, the staging, the cull and the per-(pixel, splat) alpha code
 // live in raster_common.cuh, shared with the backward kernel.
+//
+// Bands (the sharded path, parallel/sharded_render.py). `tile_row0` is the
+// first tile row of the band in the whole frame, as `trow0` of the TPU
+// kernel: the block of tile t evaluates its pixel centres, and places its
+// warps' cull rectangles, at global row (t / tiles_x + tile_row0) * tile_h
+// + ly, so every alpha is the one the whole frame would give; the images
+// are the band's own (`height` rows), written at band-local row
+// (t / tiles_x) * tile_h + ly. With tile_row0 = 0 the kernel is the
+// whole-frame kernel, operation for operation.
 
 #include "raster_common.cuh"
 
@@ -92,7 +101,7 @@ __global__ void __launch_bounds__(1024) raster_fwd_kernel(
     float* __restrict__ out_tfinal,        // (H, W)
     int* __restrict__ walked,              // (T,) pairs walked per tile, or null
     int* __restrict__ counters,            // (T, 2), only read when COUNT
-    int tiles_x, int tile_w, int tile_h, int width, int height,
+    int tiles_x, int tile_w, int tile_h, int width, int height, int tile_row0,
     float alpha_clamp, float trans_eps, int sat_check)
 {
     __shared__ float4 rows[BATCH * ROW_F4];
@@ -101,15 +110,16 @@ __global__ void __launch_bounds__(1024) raster_fwd_kernel(
     const int t = blockIdx.x;
     const int p = threadIdx.x;             // blockDim.x = tile pixels rounded up to 32
     const int tx0 = (t % tiles_x) * tile_w;
-    const int ty0 = (t / tiles_x) * tile_h;
+    const int ty0 = (t / tiles_x) * tile_h;              // in the band's image
+    const int gy0 = ty0 + tile_row0 * tile_h;            // in the whole frame
     int lx, ly;
     tile_pixel(p, tile_w, tile_h, &lx, &ly);
     const int ix = tx0 + lx;
     const int iy = ty0 + ly;
     const bool inside = p < tile_w * tile_h && ix < width && iy < height;
     const float px = (float)ix + 0.5f;
-    const float py = (float)iy + 0.5f;
-    const WarpRect rect = warp_rect(p, tile_w, tile_h, tx0, ty0);
+    const float py = (float)(gy0 + ly) + 0.5f;
+    const WarpRect rect = warp_rect(p, tile_w, tile_h, tx0, gy0);
 
     const int off = tile_offsets[t];
     const int cnt = tile_counts[t];
@@ -168,7 +178,7 @@ extern "C" int raster_fwd_launch(
     const void* tile_counts, void* out_rgbd, void* out_tfinal, void* walked,
     void* counters,
     int num_tiles, int tiles_x, int tile_w, int tile_h, int width, int height,
-    float alpha_clamp, float trans_eps, int sat_check, void* stream)
+    int tile_row0, float alpha_clamp, float trans_eps, int sat_check, void* stream)
 {
     if (num_tiles > 0) {
         auto kernel = counters != nullptr ? raster_fwd_kernel<true> : raster_fwd_kernel<false>;
@@ -177,7 +187,7 @@ extern "C" int raster_fwd_launch(
             (const float4*)table, (const int*)pair_gauss, (const int*)tile_offsets,
             (const int*)tile_counts, (float4*)out_rgbd, (float*)out_tfinal,
             (int*)walked, (int*)counters, tiles_x, tile_w, tile_h, width, height,
-            alpha_clamp, trans_eps, sat_check);
+            tile_row0, alpha_clamp, trans_eps, sat_check);
     }
     return (int)cudaGetLastError();
 }

@@ -24,9 +24,16 @@ two-key fallback), the rect columns are gathered directly rather than packed
 into a code word, the pair list is exactly `pair_budget` long (the CUDA
 kernel needs no alignment padding), and the sort's indices are kept
 (`pair_src`): from them `rank_permutation_from_sort` gives the backward the
-pairs' rank order, which the reference sorts again. The sharded-path
-arguments (`max_active`, `tile_row0`, `total_tiles_y`) arrive with the
-multi-GPU slice.
+pairs' rank order, which the reference sorts again.
+
+The sharded path (parallel/sharded_render.py) bins one horizontal band of a
+taller frame: `total_tiles_y` is the global tile-row count and `tile_row0`
+the band's first global row, so rects, K-cap shrinks, tier flags and the
+σ-bound cell test are the single-card decisions on the global grid, clipped
+to the band afterwards; `max_active` lets only the first m depth ranks emit
+(out-of-band splats sort last), and valid splats past them are counted in
+`dropped_gaussians`. Then the slot layout (`emission_rows(m)`), `rank_starts`
+and the per-splat table cover the m active ranks only.
 """
 
 from __future__ import annotations
@@ -51,12 +58,23 @@ class BinningResult(NamedTuple):
     overflow: torch.Tensor  # () int32 pairs dropped by the budget
     clamped_rects: torch.Tensor  # () int32 gaussians whose tile rect was shrunk
     #   by the per-gaussian K cap or the tier-capacity overflow
-    rank_starts: torch.Tensor  # (N+1,) int32 exclusive cumsum of per-rank pair
-    #   counts: pairs of depth-rank r number rank_starts[r+1]−rank_starts[r]
+    rank_starts: torch.Tensor  # (M+1,) int32 exclusive cumsum of per-rank pair
+    #   counts: pairs of depth-rank r number rank_starts[r+1]−rank_starts[r].
+    #   M = min(max_active, N) ranks may emit (N without max_active); the
+    #   per-splat table holds these M ranks (`num_active`)
     tier_overflow: torch.Tensor  # () int32 big-tier-ELIGIBLE gaussians denied a
     #   big slot because the big-tier capacity overflowed
     pair_src: torch.Tensor  # (B,) int32 emission slot each pair was sorted from
     #   (see `rank_permutation_from_sort`)
+    dropped_gaussians: torch.Tensor  # () int32 valid gaussians beyond the
+    #   `max_active` cap (sharded path: in-band splats a device had to drop
+    #   because its band capacity overflowed; 0 when max_active is None)
+
+    @property
+    def num_active(self) -> int:
+        """M, the depth ranks that may emit pairs: the per-splat table's rows
+        are `order[:M]`."""
+        return self.rank_starts.shape[0] - 1
 
 
 class EmissionRows(NamedTuple):
@@ -75,26 +93,32 @@ class EmissionRows(NamedTuple):
         return self.small * self.k_small + self.big * self.k_big
 
 
-def emission_rows(n: int, config: RenderConfig) -> EmissionRows:
-    """The emission layout of `bin_gaussians` for n splats."""
+def emission_rows(m: int, config: RenderConfig) -> EmissionRows:
+    """The emission layout of `bin_gaussians` when m depth ranks may emit
+    (m = N without `max_active`): m small rows and the big tier's capacity
+    for m."""
     return EmissionRows(
-        n, config.small_tiles_per_gaussian, config.big_capacity(n),
+        m, config.small_tiles_per_gaussian, config.big_capacity(m),
         config.max_tiles_per_gaussian,
     )
 
 
 class BinningStats(NamedTuple):
     """Scalar telemetry extracted from a BinningResult (0-d tensors on the
-    binning's device: reading one is a device synchronisation)."""
+    binning's device: reading one is a device synchronisation). The sharded
+    path returns one row per band: each field (D,)."""
 
-    num_pairs: torch.Tensor
-    overflow: torch.Tensor
-    clamped_rects: torch.Tensor
-    tier_overflow: torch.Tensor
+    num_pairs: torch.Tensor  # valid pairs before budget truncation
+    overflow: torch.Tensor  # pairs dropped by the pair budget
+    clamped_rects: torch.Tensor  # shrunk tile rects
+    dropped_gaussians: torch.Tensor  # splats dropped by max_active (and, on
+    #   the all_to_all path, by the send buffers)
+    tier_overflow: torch.Tensor  # big-tier capacity misses
 
     @classmethod
     def of(cls, b: BinningResult) -> "BinningStats":
-        return cls(b.num_pairs, b.overflow, b.clamped_rects, b.tier_overflow)
+        return cls(b.num_pairs, b.overflow, b.clamped_rects, b.dropped_gaussians,
+                   b.tier_overflow)
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -133,15 +157,21 @@ def tile_rects(
     height: int,
     config: RenderConfig,
     extents: Optional[torch.Tensor] = None,
+    total_tiles_y: Optional[int] = None,
 ):
     """Per-gaussian tile rectangle [tx0,tx1)×[ty0,ty1), capped to the
     per-gaussian tile budget. Returns (tx0, ty0, rect_w, rect_h, clamped_count).
 
     `extents` (N, 2), when given, is the exact per-axis ellipse AABB from
-    projection — strictly tighter than the circular `radii`."""
+    projection — strictly tighter than the circular `radii`.
+
+    `total_tiles_y`: the GLOBAL tile-row count when this call serves one
+    band of a taller frame. Rects and the K-cap shrink are then computed on
+    the global grid, so every band makes the single-card decision; the
+    caller clips to its band afterwards (`bin_gaussians`)."""
     tw, th = config.tile_width, config.tile_height
     tx_n = config.tiles_x(width)
-    ty_n = config.tiles_y(height)
+    ty_n = config.tiles_y(height) if total_tiles_y is None else total_tiles_y
 
     if extents is not None:
         rx = quantize_extent_up(extents[:, 0])
@@ -205,29 +235,37 @@ def effective_rects(
     width: int,
     height: int,
     config: RenderConfig,
+    n_active: Optional[int] = None,
     extents: Optional[torch.Tensor] = None,
+    total_tiles_y: Optional[int] = None,
 ):
     """Two-tier per-gaussian rects as used by `bin_gaussians`, in ORIGINAL
     index order.
 
     Tier membership is a per-gaussian THRESHOLD (K-capped rect area >
     `small_tiles_per_gaussian`); the big tier keeps a STATIC capacity
-    `config.big_capacity(N)`, and eligible splats beyond it lose
+    `config.big_capacity(n_active or N)`, and eligible splats beyond it lose
     deterministically by area and are shrunk to the small cap, counted in
-    `tier_overflow` — zero in any sane configuration.
+    `tier_overflow` — zero in any sane configuration, and on the sharded
+    path the sentinel that every band made the single-card decision.
+    `n_active` sizes the capacity when only that many depth ranks may emit
+    (`max_active`); `total_tiles_y` as in `tile_rects`: rects, shrinks and
+    tier flags all on the global grid.
     Returns (tx0, ty0, w, h, is_big, clamped, tier_overflow)."""
     tw, th = config.tile_width, config.tile_height
     tx_n = config.tiles_x(width)
-    ty_n = config.tiles_y(height)
+    ty_n = config.tiles_y(height) if total_tiles_y is None else total_tiles_y
     n = means2d.shape[0]
+    n_eff = n if n_active is None else min(n_active, n)
     mx, my = means2d[:, 0], means2d[:, 1]
 
     tx0, ty0, w, h, clamped_big = tile_rects(
-        means2d, radii, valid, width, height, config, extents=extents
+        means2d, radii, valid, width, height, config, extents=extents,
+        total_tiles_y=total_tiles_y,
     )
     area = w * h  # 0 on invalid rows
 
-    m_big = config.big_capacity(n)
+    m_big = config.big_capacity(n_eff)
     eligible = area > config.small_tiles_per_gaussian
     big_idx = _top_indices(torch.where(eligible, area, 0), m_big)
     sel = eligible[big_idx]  # capacity slots actually holding eligible splats
@@ -243,15 +281,16 @@ def effective_rects(
     return tx0, ty0, w, h, is_big, clamped, tier_overflow
 
 
-def _cell_sigma_min(tx, ty, mx, my, A2, B, C2, tw, th):
+def _cell_sigma_min(tx, ty_global, mx, my, A2, B, C2, tw, th):
     """Exact min of σ = A2·dx² + B·dx·dy + C2·dy² over a tile's pixel-center
-    box [tx·tw+0.5, tx·tw+tw−0.5] × [ty·th+0.5, ty·th+th−0.5].
+    box [tx·tw+0.5, tx·tw+tw−0.5] × [ty·th+0.5, ty·th+th−0.5], ty the tile's
+    row on the GLOBAL grid.
 
     The box-constrained minimum of a positive-definite quadratic is 0 if the
     mean is inside, else it lies on the boundary: evaluate the 1-D clamped
     minimizer on each of the four edges and take the min."""
     x0 = tx.to(torch.float32) * tw + 0.5
-    y0 = ty.to(torch.float32) * th + 0.5
+    y0 = ty_global.to(torch.float32) * th + 0.5
     dx0 = x0 - mx
     dx1 = dx0 + (tw - 1.0)
     dy0 = y0 - my
@@ -285,6 +324,9 @@ def bin_gaussians(
     height: int,
     config: RenderConfig,
     opacities: Optional[torch.Tensor] = None,
+    max_active: Optional[int] = None,
+    tile_row0: int = 0,
+    total_tiles_y: Optional[int] = None,
 ) -> BinningResult:
     """Full binning pass; integer outputs, no gradient.
 
@@ -292,13 +334,28 @@ def bin_gaussians(
     test — a (gaussian, tile) pair whose support ellipse {σ ≤ bound} does not
     reach the tile's pixel-center box is dropped at expansion time.
     Output-identical (such pairs contribute α≡0 in every backend). Without it
-    every rect cell is kept."""
+    every rect cell is kept.
+
+    `max_active` caps how many depth-sorted gaussians may emit pairs: the
+    sharded path marks out-of-band splats invalid (they sort last) and passes
+    its band capacity here, so the expansion and the pair sort run over M
+    rows instead of N. Valid gaussians beyond the cap are counted in
+    `dropped_gaussians`.
+
+    `total_tiles_y` + `tile_row0`: GLOBAL-grid banding for the sharded path.
+    Rects, K-cap shrinks, tier membership and the σ-bound cell test use the
+    global `total_tiles_y`-row grid (the single-card decisions: means2d stay
+    in global pixel coordinates); the rects are then clipped to the band of
+    `tiles_y(height)` rows from `tile_row0`, and tile ids are band-local."""
     dev = proj.means2d.device
     tx_n = config.tiles_x(width)
     ty_n = config.tiles_y(height)
     num_tiles = tx_n * ty_n
+    if tile_row0 and total_tiles_y is None:
+        raise ValueError("tile_row0 places a band in a frame of total_tiles_y rows")
     n = proj.means2d.shape[0]
-    emission = emission_rows(n, config)
+    m = n if max_active is None else min(max_active, n)
+    emission = emission_rows(m, config)
     K, k_small, m_big = emission.k_big, emission.k_small, emission.big
     tw, th = config.tile_width, config.tile_height
 
@@ -309,19 +366,31 @@ def bin_gaussians(
     # --- 2. two-tier tile rects (original order), gathered into depth order -
     tx0_o, ty0_o, w_o, h_o, is_big_o, clamped, tier_ovf = effective_rects(
         proj.means2d, proj.radii, proj.valid, width, height, config,
-        extents=proj.extents,
+        n_active=m, extents=proj.extents, total_tiles_y=total_tiles_y,
     )
     tx0, ty0, w, h = tx0_o[order], ty0_o[order], w_o[order], h_o[order]
     is_big = is_big_o[order]
     valid = proj.valid[order]
+    if total_tiles_y is not None:
+        # band clip on the global grid: [ty0, ty0+h) ∩ [row0, row0+ty_n),
+        # re-based to band-local rows; shrinks, tier flags and w came from
+        # the global rect, so the geometry is the single-card decision
+        ty1 = torch.clamp(ty0 + h - tile_row0, 0, ty_n)
+        ty0 = torch.clamp(ty0 - tile_row0, 0, ty_n)
+        h = ty1 - ty0
     area = w * h
+    if m < n:
+        dropped = _count(valid[m:])
+        area[m:] = 0
+    else:
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
     # rank-space index list of the big tier: ≤ m_big set bits first (lowest
     # rank first), unused capacity slots filled with non-big rows and masked
     big_idx = _top_indices(_i32(is_big), m_big)
     big_used = is_big[big_idx]
 
-    ranks = torch.arange(n, dtype=torch.int32, device=dev)
+    ranks = torch.arange(m, dtype=torch.int32, device=dev)
 
     def cells(tx0e, ty0e, we, kk):
         """(rows, kk) tile coordinates of each rect's kk first cells."""
@@ -329,9 +398,9 @@ def bin_gaussians(
         w_safe = torch.clamp_min(we, 1)[:, None]
         return tx0e[:, None] + kidx % w_safe, ty0e[:, None] + kidx // w_safe, kidx
 
-    cells_s = cells(tx0, ty0, w, k_small)
+    cells_s = cells(tx0[:m], ty0[:m], w[:m], k_small)
     cells_b = cells(tx0[big_idx], ty0[big_idx], w[big_idx], K)
-    area_small_raw = torch.where(is_big, 0, area)
+    area_small_raw = torch.where(is_big, 0, area)[:m]
     area_big_raw = torch.where(big_used, area[big_idx], 0)
     mask_s = cells_s[2] < area_small_raw[:, None]
     mask_b = cells_b[2] < area_big_raw[:, None]
@@ -351,24 +420,26 @@ def bin_gaussians(
 
         def reaches(cell, rows):
             smin = _cell_sigma_min(
-                cell[0], cell[1],
+                cell[0], cell[1] + tile_row0,
                 mx_s[rows][:, None], my_s[rows][:, None],
                 A2_s[rows][:, None], B_s[rows][:, None], C2_s[rows][:, None],
                 tw, th,
             )
             return smin <= bound_s[rows][:, None]
 
-        mask_s = mask_s & reaches(cells_s, slice(None))
+        mask_s = mask_s & reaches(cells_s, slice(0, m))
         mask_b = mask_b & reaches(cells_b, big_idx)
         # per-rank survivor counts replace the raw rect areas downstream
         area = _i32(torch.sum(mask_s, dim=1))
+        if m < n:  # ranks past the cap emit nothing
+            area = torch.cat([area, area.new_zeros((n - m,))])
         area = area.index_add(0, big_idx, _i32(torch.sum(mask_b, dim=1)))
 
     # --- 2b. rank-deterministic budget truncation ---------------------------
     # Drop WHOLE gaussians from the far end of the depth order until the pair
     # budget fits: overflow is semantically clean (the farthest splats vanish)
     # and per-rank pair counts stay exact.
-    budget = min(config.pair_budget(n), emission.slots)
+    budget = min(config.pair_budget(m), emission.slots)
     ends_all = torch.cumsum(area, dim=0)
     fits = ends_all <= budget
     eff_area = torch.where(fits, area, 0)
@@ -376,7 +447,7 @@ def bin_gaussians(
     overflow = num_pairs - _i32(torch.sum(eff_area))
     rank_starts = torch.cat(
         [torch.zeros((1,), dtype=torch.int32, device=dev),
-         _i32(torch.cumsum(eff_area, dim=0))]
+         _i32(torch.cumsum(eff_area[:m], dim=0))]
     )
 
     # --- 3. padded pair expansion, then ONE sort -----------------------------
@@ -390,7 +461,7 @@ def bin_gaussians(
         return torch.where(ok, key, sentinel).reshape(-1)
 
     flat_keys = torch.cat([
-        keys(cells_s, mask_s & fits[:, None], ranks),
+        keys(cells_s, mask_s & fits[:m, None], ranks),
         keys(cells_b, mask_b & fits[big_idx][:, None], _i32(big_idx)),
     ])
     sorted_keys, src = torch.sort(flat_keys)
@@ -417,6 +488,7 @@ def bin_gaussians(
         rank_starts=rank_starts,
         tier_overflow=tier_ovf,
         pair_src=_i32(src[:budget]),
+        dropped_gaussians=dropped,
     )
 
 
@@ -424,7 +496,7 @@ def bin_gaussians(
 def rank_permutation_from_sort(
     pair_src: torch.Tensor,  # (B,) int32 BinningResult.pair_src
     pair_gauss: torch.Tensor,  # (B,) int32
-    rank_starts: torch.Tensor,  # (N+1,) int32
+    rank_starts: torch.Tensor,  # (M+1,) int32, M = BinningResult.num_active
     config: RenderConfig,
 ) -> torch.Tensor:
     """(B,) int32, element for element what `tile_raster.rank_permutation`
@@ -438,7 +510,8 @@ def rank_permutation_from_sort(
     pair list holds a splat's pairs in the order of their slots. Pair j of rank r therefore sits at rank_starts[r] + (kept
     cells of its row before its own): one scatter of ones over the slots, a
     cumsum along each row, gathers over the pairs. Padding rows, past
-    rank_starts[N], keep their own places, as the stable sort leaves them."""
+    rank_starts[M], keep their own places, as the stable sort leaves them.
+    The layout is `emission_rows(M)`, M read from rank_starts."""
     n = rank_starts.shape[0] - 1
     b = pair_src.shape[0]
     dev = pair_src.device

@@ -14,8 +14,11 @@ here and a plain PyTorch version of the same arguments in ops/tile_raster.py
 
 The two raster kernels share csrc/raster_common.cuh: the thread layout (8×4
 pixel warps), the per-splat extent and the per-warp cull; their plain mirrors
-(`tile_thread_pixels`, `tile_warp_rects`, `splat_extent_torch`,
-`extent_misses_rect`) are in ops/tile_raster.py too. segsum, bound by the
+(`tile_thread_pixels`, `tile_warp_rects`, `warp_pixel_rects`,
+`splat_extent_torch`, `extent_misses_rect`) are in ops/tile_raster.py too.
+Both render one band of a frame when given `tile_row0` (the band's first
+global tile row, 0 for a whole frame): pixel centres are global, the images
+hold the band's rows. segsum, bound by the
 bytes of its row gather, splits its work by pairs: a warp per run of ranks
 plus sorted positions, owning the ranks placed in its run (the owner rule's
 plain mirror is `tile_raster.segsum_runs`).
@@ -62,8 +65,8 @@ launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "raster_fwd": [_P] * 8 + [_I] * 6 + [_F, _F, _I, _P],
-    "raster_bwd": [_P] * 11 + [_I] * 7 + [_F, _P],
+    "raster_fwd": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
+    "raster_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
     "rank_perm": [_P] * 5 + [_I] * 5 + [_P],
     "segsum": [_P] * 4 + [_I, _I, _P],
 }
@@ -142,7 +145,7 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 def _launch_forward(
     table, pair_gauss, tile_offsets, tile_counts, width, height, config, walked,
-    counters,
+    counters, tile_row0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     num_tiles = _check_raster_inputs(
         "raster_fwd", table, pair_gauss, tile_offsets, tile_counts, width, height,
@@ -158,7 +161,7 @@ def _launch_forward(
             tile_counts.data_ptr(), rgbd.data_ptr(), t_final.data_ptr(),
             _ptr(walked), _ptr(counters),
             num_tiles, config.tiles_x(width), config.tile_width, config.tile_height,
-            width, height, config.alpha_clamp, config.transmittance_eps,
+            width, height, tile_row0, config.alpha_clamp, config.transmittance_eps,
             int(config.sat_check), _stream(dev),
         )
     if err != 0:
@@ -169,7 +172,7 @@ def _launch_forward(
 
 def _launch_backward(
     table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final, d_rgbd,
-    d_t_final, width, height, config, walked, counters,
+    d_t_final, width, height, config, walked, counters, tile_row0,
 ) -> torch.Tensor:
     num_tiles = _check_raster_inputs(
         "raster_bwd", table, pair_gauss, tile_offsets, tile_counts, width, height,
@@ -190,7 +193,7 @@ def _launch_backward(
             rgbd.data_ptr(), t_final.data_ptr(), d_rgbd.data_ptr(),
             d_t_final.data_ptr(), rows.data_ptr(), _ptr(counters),
             num_rows, num_tiles, config.tiles_x(width), config.tile_width,
-            config.tile_height, width, height, config.alpha_clamp,
+            config.tile_height, width, height, tile_row0, config.alpha_clamp,
             _stream(dev),
         )
     if err != 0:
@@ -257,6 +260,7 @@ def raster_forward(
     # optional (T, 2) i32, zeroed by the caller: the kernel adds, per tile, its
     # kept steps inside the image and the (warp, pair)s its cull let through
     counters: Optional[torch.Tensor] = None,
+    tile_row0: int = 0,  # a band's first global tile row; height = its rows
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward raster kernel: (rgbd (H,W,4), T_final (H,W)), no background
     applied, no autograd graph (`rasterize` is the differentiable stage).
@@ -267,11 +271,12 @@ def raster_forward(
     if not table.is_cuda:
         with torch.no_grad():
             return tile_raster.raster_forward_torch(
-                table, pair_gauss, tile_offsets, tile_counts, width, height, config
+                table, pair_gauss, tile_offsets, tile_counts, width, height, config,
+                tile_row0,
             )
     return _launch_forward(
         table.detach(), pair_gauss, tile_offsets, tile_counts, width, height,
-        config, walked, counters,
+        config, walked, counters, tile_row0,
     )
 
 
@@ -289,6 +294,7 @@ def raster_backward(
     config: RenderConfig,
     walked: Optional[torch.Tensor] = None,  # (T,) i32 from the forward
     counters: Optional[torch.Tensor] = None,  # (T, 2) i32, as in raster_forward
+    tile_row0: int = 0,  # as in raster_forward
 ) -> torch.Tensor:
     """The backward raster kernel: (B, 12) f32 gradient rows, one per pair in
     the pair list's order, laid out like the table's rows (columns 10 and 11
@@ -299,18 +305,19 @@ def raster_backward(
         rows10 = tile_raster.raster_backward_torch(
             table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
             d_rgbd, d_t_final, width, height, config, walked=walked,
+            tile_row0=tile_row0,
         )
         return torch.nn.functional.pad(rows10, (0, ROW_COLS - rows10.shape[1]))
     return _launch_backward(
         table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
-        d_rgbd, d_t_final, width, height, config, walked, counters,
+        d_rgbd, d_t_final, width, height, config, walked, counters, tile_row0,
     )
 
 
 def rank_permutation_from_sort(
     pair_src: torch.Tensor,  # (B,) i32 BinningResult.pair_src
     pair_gauss: torch.Tensor,  # (B,) i32
-    rank_starts: torch.Tensor,  # (N+1,) i32
+    rank_starts: torch.Tensor,  # (M+1,) i32, over the M active ranks
     config: RenderConfig,
 ) -> torch.Tensor:
     """The rank-order kernel: (B,) i32, the stable sort of the pair list by
@@ -344,18 +351,18 @@ class _Raster(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, pair_gauss, pair_src, tile_offsets, tile_counts,
-                rank_starts, width, height, config):
+                rank_starts, width, height, config, tile_row0):
         # the early exit is the kernel's; the plain forward walks everything
         walked = torch.empty_like(tile_counts) if table.is_cuda else None
         rgbd, t_final = raster_forward(
             table, pair_gauss, tile_offsets, tile_counts, width, height,
-            config, walked=walked,
+            config, walked=walked, tile_row0=tile_row0,
         )
         ctx.save_for_backward(
             table, pair_gauss, pair_src, tile_offsets, tile_counts, rank_starts,
             rgbd, t_final, walked,
         )
-        ctx.frame = (width, height, config)
+        ctx.frame = (width, height, config, tile_row0)
         return rgbd, t_final
 
     @staticmethod
@@ -363,15 +370,15 @@ class _Raster(torch.autograd.Function):
     def backward(ctx, d_rgbd, d_t_final):
         (table, pair_gauss, pair_src, tile_offsets, tile_counts, rank_starts,
          rgbd, t_final, walked) = ctx.saved_tensors
-        width, height, config = ctx.frame
+        width, height, config, tile_row0 = ctx.frame
         rows = raster_backward(
             table, pair_gauss, tile_offsets, tile_counts, rgbd, t_final,
             d_rgbd.contiguous(), d_t_final.contiguous(), width, height, config,
-            walked=walked,
+            walked=walked, tile_row0=tile_row0,
         )
         perm = rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
         d_table = segment_sum(rows, perm, rank_starts, table.shape[0])
-        return d_table, *(None,) * 8
+        return d_table, *(None,) * 9
 
 
 def rasterize(
@@ -380,13 +387,15 @@ def rasterize(
     width: int,
     height: int,
     config: RenderConfig,
+    tile_row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The differentiable raster stage, (rgbd (H,W,4), T_final (H,W)): the
     kernels on CUDA tensors (or raises), their plain versions on CPU tensors;
-    the backward is the explicit one either way."""
+    the backward is the explicit one either way. `table` holds the binning's
+    `num_active` ranks; `tile_row0` places a band of `height` rows."""
     return _Raster.apply(
         table, binning.pair_gauss, binning.pair_src, binning.tile_offsets,
-        binning.tile_counts, binning.rank_starts, width, height, config,
+        binning.tile_counts, binning.rank_starts, width, height, config, tile_row0,
     )
 
 
@@ -397,12 +406,17 @@ def render_tiled_cuda(
     width: int,
     height: int,
     config: RenderConfig,
+    max_active: Optional[int] = None,
+    tile_row0: int = 0,
+    total_tiles_y: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Full tiled render through the CUDA kernels; raises on CPU tensors."""
+    """Full tiled render through the CUDA kernels; raises on CPU tensors.
+    The band arguments as in `tile_raster.render_tiled`."""
     if not proj.means2d.is_cuda:
         raise ValueError(
             f'backend "cuda" needs CUDA tensors, got {proj.means2d.device}'
         )
     return tile_raster.render_tiled(
-        proj, colors, opacities, width, height, config, raster_fn=rasterize
+        proj, colors, opacities, width, height, config, raster_fn=rasterize,
+        max_active=max_active, tile_row0=tile_row0, total_tiles_y=total_tiles_y,
     )

@@ -28,7 +28,9 @@ from gaussian_splat_tpu_torch.config import BACKENDS, RenderConfig
 from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_tpu_torch.ops import reference as reference_ops
 from gaussian_splat_tpu_torch.ops import sh as sh_ops
-from gaussian_splat_tpu_torch.ops.binning import BinningStats, tile_rects
+from gaussian_splat_tpu_torch.ops.binning import (
+    BinningStats, quantize_extent_up, tile_rects,
+)
 from gaussian_splat_tpu_torch.ops.projection import (
     ProjectedGaussians, project_gaussians, view_directions,
 )
@@ -131,6 +133,8 @@ def calibrate_render_config(
     config: RenderConfig = RenderConfig(),
     pair_headroom: float = 1.15,
     big_headroom: float = 1.2,
+    mesh_ndev: Optional[int] = None,
+    margin_headroom: float = 2.0,
 ) -> RenderConfig:
     """Measure scene-dependent capacities and return a tightened config.
 
@@ -147,13 +151,20 @@ def calibrate_render_config(
 
     With both sentinels at 0 the calibrated config renders BIT-IDENTICAL
     output to the default config — the budget and capacity only affect
-    truncation and padding. `cameras` is one Camera or an iterable; the max
-    over cameras is used."""
+    truncation and padding.
+
+    With `mesh_ndev`, a third measurement sizes `shard_capacity_margin`: the
+    largest per-band splat incidence (the band test of the sharded path)
+    minus the N/D resident share, scaled by `margin_headroom` — so the
+    sharded compaction cap stays as tight as the scene allows without drops.
+
+    `cameras` is one Camera or an iterable; the max over cameras is used."""
     if isinstance(cameras, Camera):
         cameras = [cameras]
     n = model.num_gaussians
     max_sum_area = 0
     max_eligible = 0
+    max_incidence = 0
     for cam in cameras:
         proj, _ = _project_and_shade(model, cam, config)
         _tx0, _ty0, w, h, _cl = tile_rects(
@@ -165,12 +176,27 @@ def calibrate_render_config(
         max_eligible = max(
             max_eligible, int((area > config.small_tiles_per_gaussian).sum())
         )
+        if mesh_ndev is not None and mesh_ndev > 1:
+            band_h = -(-config.tiles_y(cam.height) // mesh_ndev) * config.tile_height
+            my = proj.means2d[:, 1]
+            ry = quantize_extent_up(proj.extents[:, 1])
+            for d in range(mesh_ndev):
+                lo, hi = float(d * band_h), float((d + 1) * band_h)
+                incidence = int((proj.valid & (my + ry > lo) & (my - ry < hi)).sum())
+                max_incidence = max(max_incidence, incidence)
 
     ppg = max(max_sum_area * pair_headroom / max(n, 1), 0.5)
     big_cap = max(-(-int(max_eligible * big_headroom) // 1024) * 1024, 64)
-    return dataclasses.replace(
-        config, pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap
-    )
+    updates = dict(pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap)
+    if mesh_ndev is not None and mesh_ndev > 1:
+        tail = max(max_incidence - -(-n // mesh_ndev), 0)
+        # margin 1.0 already makes the cap N (no compaction beyond that):
+        # tiny scenes with band-spanning splats can measure a tail above
+        # (1 - 1/D)·N
+        updates["shard_capacity_margin"] = round(
+            min(tail * margin_headroom / max(n, 1), 1.0), 4
+        )
+    return dataclasses.replace(config, **updates)
 
 
 @torch.no_grad()

@@ -18,6 +18,11 @@ T sequentially instead; the two differ by rounding only.
 
 `composite_pairs` works on a RANGE of tiles, so a large frame can be composited
 in batches: its temporaries are (pairs in the range) × (pixels per tile).
+
+Bands (the sharded path): `tile_row0` is the band's first tile row in the
+whole frame. Pixel centres are GLOBAL — py = (tile row + tile_row0)·th +
+row + 0.5, so every α is the single-card one — while the images hold the
+band's rows only (the rule of the reference's jnp_tile and Pallas kernels).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from gaussian_splat_tpu_torch.config import RenderConfig
-from gaussian_splat_tpu_torch.ops.binning import BinningStats, bin_gaussians
+from gaussian_splat_tpu_torch.ops.binning import BinningResult, BinningStats, bin_gaussians
 from gaussian_splat_tpu_torch.ops.falloff import (
     alpha_from_sigma, sigma_bound, sigma_quadform,
 )
@@ -91,11 +96,13 @@ def pair_pixel_sigma(
     num_tiles_x: int,
     config: RenderConfig,
     tile_range: Tuple[int, int],
+    tile_row0: int = 0,
 ):
     """The (pixel, pair) grid of the tiles [t0, t1): returns
     (rows (b, 12), local_tile (b,), start, px (b, npix), py (b, npix),
     sigma (b, npix)) for the b pairs of the range, which are the slice
-    [start, start+b) of the tile-sorted pair list."""
+    [start, start+b) of the tile-sorted pair list. px, py are the global
+    pixel centres: a band's tile rows start at `tile_row0`."""
     tw, th = config.tile_width, config.tile_height
     npix = tw * th
     dev = table.device
@@ -116,7 +123,7 @@ def pair_pixel_sigma(
         torch.float32
     ) + 0.5
     py = (
-        torch.div(tile, num_tiles_x, rounding_mode="floor")[:, None] * th
+        (torch.div(tile, num_tiles_x, rounding_mode="floor") + tile_row0)[:, None] * th
         + torch.div(lane, tw, rounding_mode="floor")[None, :]
     ).to(torch.float32) + 0.5
 
@@ -211,6 +218,22 @@ def tile_warp_rects(tile_w: int, tile_h: int) -> np.ndarray:
     return np.asarray(rects, dtype=np.int64)
 
 
+def warp_pixel_rects(
+    tiles: torch.Tensor, num_tiles_x: int, tile_w: int, tile_h: int, tile_row0: int = 0
+) -> Tuple[torch.Tensor, ...]:
+    """(x0, x1, y0, y1), each (len(tiles), warps) float32: the pixel-centre
+    rectangle of every warp of each tile in GLOBAL image coordinates, as
+    `warp_rect` in csrc/raster_common.cuh gets it (the tile's first global
+    pixel row is (tile // num_tiles_x + tile_row0)·tile_h). With
+    `splat_extent_torch` and `extent_misses_rect`, the plain mirror of the
+    kernels' per-warp cull."""
+    rects = torch.from_numpy(tile_warp_rects(tile_w, tile_h)).to(tiles.device)
+    tx0 = ((tiles % num_tiles_x) * tile_w)[:, None]
+    ty0 = ((torch.div(tiles, num_tiles_x, rounding_mode="floor") + tile_row0) * tile_h)[:, None]
+    corners = (tx0 + rects[:, 0], tx0 + rects[:, 1], ty0 + rects[:, 2], ty0 + rects[:, 3])
+    return tuple(c.to(torch.float32) + 0.5 for c in corners)
+
+
 def composite_pairs(
     table: torch.Tensor,  # (N, 12) rank-ordered per-splat table
     pair_gauss: torch.Tensor,  # (B,) depth rank per pair
@@ -219,6 +242,7 @@ def composite_pairs(
     num_tiles_x: int,
     config: RenderConfig,
     tile_range: Optional[Tuple[int, int]] = None,
+    tile_row0: int = 0,  # the band's first global tile row
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Composite the tiles [t0, t1) of `tile_range` (default: all) into
     (t1−t0, tw·th, 4) r,g,b,depth and (t1−t0, tw·th) T_final."""
@@ -227,7 +251,8 @@ def composite_pairs(
     t0, t1 = (0, tile_offsets.shape[0]) if tile_range is None else tile_range
     nt = t1 - t0
     rows, local_tile, start, _, _, sigma = pair_pixel_sigma(
-        table, pair_gauss, tile_offsets, tile_counts, num_tiles_x, config, (t0, t1)
+        table, pair_gauss, tile_offsets, tile_counts, num_tiles_x, config, (t0, t1),
+        tile_row0,
     )
     b = rows.shape[0]
     alpha, _, _ = alpha_from_sigma(
@@ -297,11 +322,13 @@ def raster_forward_torch(
     width: int,
     height: int,
     config: RenderConfig,
+    tile_row0: int = 0,
     max_batch_pairs: int = 1 << 16,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The raster stage in plain torch: same arguments and results as the
     CUDA wrapper `cuda_raster.raster_forward`. Returns (rgbd (H,W,4),
-    T_final (H,W)), no background applied.
+    T_final (H,W)), no background applied. A band (`tile_row0`, see the
+    module docstring) is `height` rows of the frame.
 
     Tiles are composited in batches of at most `max_batch_pairs` pairs (one
     tile at least), bounding the (pairs × pixels) temporaries."""
@@ -311,7 +338,8 @@ def raster_forward_torch(
     rgbd_parts, t_parts = [], []
     for t0, t1 in tile_batches(tile_offsets, tile_counts, max_batch_pairs):
         rgbd_t, tfin_t = composite_pairs(
-            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
+            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1),
+            tile_row0,
         )
         rgbd_parts.append(rgbd_t)
         t_parts.append(tfin_t)
@@ -335,6 +363,7 @@ def raster_backward_torch(
     height: int,
     config: RenderConfig,
     walked: Optional[torch.Tensor] = None,
+    tile_row0: int = 0,
     max_batch_pairs: int = 1 << 15,
 ) -> torch.Tensor:
     """The raster stage's backward in plain torch, by the explicit formulas
@@ -354,7 +383,8 @@ def raster_backward_torch(
     `walked` ((T,) pairs the forward walked before its early exit) shortens
     each segment as the kernel does; None walks whole segments. Everything
     after α is carried in float64: the running sums span every segment of a
-    batch and are re-based per segment, which cancels in float32."""
+    batch and are re-based per segment, which cancels in float32.
+    `tile_row0` places a band as in `raster_forward_torch`."""
     tw, th = config.tile_width, config.tile_height
     tx_n, ty_n = config.tiles_x(width), config.tiles_y(height)
     f64 = torch.float64
@@ -370,7 +400,8 @@ def raster_backward_torch(
     out = torch.zeros((pair_gauss.shape[0], 10), dtype=table.dtype, device=table.device)
     for t0, t1 in tile_batches(tile_offsets, tile_counts, max_batch_pairs):
         rows, local_tile, start, px, py, sigma = pair_pixel_sigma(
-            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1)
+            table, pair_gauss, tile_offsets, tile_counts, tx_n, config, (t0, t1),
+            tile_row0,
         )
         b = rows.shape[0]
         if b == 0:
@@ -493,6 +524,29 @@ def segsum_runs(
 RasterFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
+def bin_and_table(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    max_active: Optional[int] = None,
+    tile_row0: int = 0,
+    total_tiles_y: Optional[int] = None,
+) -> Tuple[BinningResult, torch.Tensor]:
+    """The raster stage's inputs: the binning and the per-splat table of
+    its active depth ranks (the band arguments as in `render_tiled`)."""
+    binning = bin_gaussians(
+        proj, width, height, config, opacities=opacities, max_active=max_active,
+        tile_row0=tile_row0, total_tiles_y=total_tiles_y,
+    )
+    table = build_splat_table(
+        proj, colors, opacities, binning.order[: binning.num_active], config
+    )
+    return binning, table
+
+
 def render_tiled(
     proj: ProjectedGaussians,
     colors: torch.Tensor,
@@ -501,22 +555,33 @@ def render_tiled(
     height: int,
     config: RenderConfig,
     raster_fn: Optional[RasterFn] = None,
+    max_active: Optional[int] = None,
+    tile_row0: int = 0,
+    total_tiles_y: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, BinningStats]:
     """Full tiled render: bin → per-splat table → raster → background.
     Returns (image (H,W,3), T_final (H,W), depth (H,W), BinningStats).
 
-    `raster_fn(table, binning, width, height, config)` is the raster stage:
-    by default this module's plain forward, differentiated by autograd; called
-    through `cuda_raster`, the kernels behind their autograd.Function."""
-    binning = bin_gaussians(proj, width, height, config, opacities=opacities)
-    table = build_splat_table(proj, colors, opacities, binning.order, config)
+    `raster_fn(table, binning, width, height, config, tile_row0)` is the
+    raster stage: by default this module's plain forward, differentiated by
+    autograd; called through `cuda_raster`, the kernels behind their
+    autograd.Function.
+
+    `max_active`, `tile_row0`, `total_tiles_y`: one band of a frame of
+    `total_tiles_y` tile rows (see `bin_gaussians`): means2d stay in global
+    pixel coordinates, and this call renders the `height` rows from tile row
+    `tile_row0`. The table holds the band's M active ranks only."""
+    binning, table = bin_and_table(
+        proj, colors, opacities, width, height, config,
+        max_active=max_active, tile_row0=tile_row0, total_tiles_y=total_tiles_y,
+    )
     if raster_fn is None:
         rgbd, t_final = raster_forward_torch(
             table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
-            width, height, config,
+            width, height, config, tile_row0,
         )
     else:
-        rgbd, t_final = raster_fn(table, binning, width, height, config)
+        rgbd, t_final = raster_fn(table, binning, width, height, config, tile_row0)
     depth = rgbd[..., 3]
     image = rgbd[..., :3]
     if any(config.background):  # over black there is nothing to add

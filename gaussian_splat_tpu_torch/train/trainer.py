@@ -12,8 +12,11 @@ Counterpart of gaussian_splat_tpu/train/trainer.py, in PyTorch's idiom:
     loss returned — as a Python loop.
   * gradients flow through the raster stage's explicit backward (the CUDA
     kernels on the GPU) and autograd through projection and SH.
-  * `mesh=` (sharded rendering) belongs to the multi-GPU slice and raises
-    `NotImplementedError` when given.
+  * `mesh=` (a `parallel.mesh.make_mesh` mesh): every rank steps its own
+    block of the model (`parallel.mesh.shard_model`) through
+    `render_sharded`, which gives every rank the whole frame; the loss is
+    computed on every rank, and each rank's Adam updates its own block only —
+    the model is split over splats, so there is no gradient all-reduce.
 
 `fit*` copy the caller's model first; the fitted copy is returned.
 """
@@ -109,11 +112,13 @@ def create_train_state(model: GaussianModel, tc: TrainConfig) -> TrainState:
     return TrainState(model=model, optimizer=make_optimizer(model, tc), step=0)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training (mesh=) arrives with the multi-GPU slice"
-        )
+def _image_fn(render_config: RenderConfig, mesh):
+    """(model, camera) → the rendered image: sharded over `mesh` when given."""
+    if mesh is None:
+        return lambda model, cam: render(model, cam, render_config).image
+    from gaussian_splat_tpu_torch.parallel.sharded_render import render_sharded
+
+    return lambda model, cam: render_sharded(model, cam, render_config, mesh).image
 
 
 def _update(state, tc: TrainConfig, loss: torch.Tensor) -> None:
@@ -133,14 +138,16 @@ def make_train_step(
 ) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, torch.Tensor]]:
     """Build a train step against one target image. The returned step runs
     `train_config.steps_per_dispatch` steps per call, updating the state in
-    place. Returns (state, loss of the last step)."""
-    _refuse_mesh(mesh)
+    place. Returns (state, loss of the last step). With `mesh`, the state
+    holds this rank's block of the model and the target is the whole
+    frame."""
+    render_image = _image_fn(render_config, mesh)
     K = max(1, train_config.steps_per_dispatch)
 
     def train_step(state: TrainState, target: torch.Tensor):
         for _ in range(K):
             model = apply_sh_warmup(state.model, state.step, train_config)
-            img = render(model, camera, render_config).image
+            img = render_image(model, camera)
             loss = photometric_loss(img, target, train_config.ssim_weight)
             _update(state, train_config, loss)
         return state, loss.detach()
@@ -155,15 +162,16 @@ def make_multiview_train_step(
     mesh=None,
 ) -> Callable:
     """Multi-view step: `step(state, view_idx)`. With steps_per_dispatch
-    K > 1, pass a sequence of K view indices per call."""
-    _refuse_mesh(mesh)
+    K > 1, pass a sequence of K view indices per call. With `mesh`, as in
+    `make_train_step`: each view renders sharded."""
+    render_image = _image_fn(render_config, mesh)
     K = max(1, train_config.steps_per_dispatch)
 
     def train_step(state: TrainState, view_idx):
         views = [int(view_idx)] if K == 1 else [int(v) for v in view_idx]
         for view in views:
             model = apply_sh_warmup(state.model, state.step, train_config)
-            img = render(model, dataset.camera(view), render_config).image
+            img = render_image(model, dataset.camera(view))
             loss = photometric_loss(
                 img, dataset.target(view), train_config.ssim_weight
             )
@@ -185,11 +193,13 @@ class AdcTrainState:
     #   checkpointed, so a resumed run draws what the uninterrupted run would
 
 
-def _maybe_checkpoint(tc: TrainConfig, state, due: bool) -> None:
+def _maybe_checkpoint(tc: TrainConfig, state, due: bool, mesh=None) -> None:
+    """Save when due; under `mesh` every rank takes part and rank 0 writes
+    the whole state."""
     if tc.checkpoint_dir and tc.checkpoint_every and due:
         from gaussian_splat_tpu_torch.train.checkpoint import save_checkpoint
 
-        save_checkpoint(tc.checkpoint_dir, state)
+        save_checkpoint(tc.checkpoint_dir, state, mesh)
 
 
 def fit_multiview_adc(
@@ -270,7 +280,7 @@ def fit_multiview_adc(
     return state.model, history
 
 
-def _fit_loop(state, step_fn, next_arg, tc: TrainConfig, log_every, callback):
+def _fit_loop(state, step_fn, next_arg, tc: TrainConfig, log_every, callback, mesh=None):
     K = max(1, tc.steps_per_dispatch)
     history = []
     for i in range(0, tc.num_steps, K):
@@ -279,7 +289,7 @@ def _fit_loop(state, step_fn, next_arg, tc: TrainConfig, log_every, callback):
             history.append(float(loss))
             if callback is not None:
                 callback(i, float(loss), state)
-        _maybe_checkpoint(tc, state, (i + K) % max(tc.checkpoint_every, 1) < K)
+        _maybe_checkpoint(tc, state, (i + K) % max(tc.checkpoint_every, 1) < K, mesh)
     return state.model, history
 
 
@@ -318,10 +328,14 @@ def fit(
     log_every: int = 100,
     callback=None,
 ) -> Tuple[GaussianModel, List[float]]:
-    """Fit a model to a single target image. Returns (model, loss history)."""
+    """Fit a model to a single target image. Returns (model, loss history).
+    With `mesh`, call it on every rank with that rank's block of the model
+    (`shard_model`) and the whole target; it returns the fitted block, and
+    the same history on every rank; a checkpoint holds the whole model
+    (`checkpoint.save_checkpoint(mesh=)`)."""
     target = torch.as_tensor(target, dtype=torch.float32).to(model.device)
     return _fit_loop(
         create_train_state(model, train_config),
         make_train_step(camera, render_config, train_config, mesh),
-        lambda: target, train_config, log_every, callback,
+        lambda: target, train_config, log_every, callback, mesh,
     )

@@ -51,11 +51,11 @@ def checked_render(model, camera, config=None, device: DeviceLike = None) -> tor
     opacities = _effective_opacities(model, proj, cfg)
     _require_finite("colours", colors=colors, opacities=opacities)
 
-    def checked_raster(table, binning, width, height, config):
+    def checked_raster(table, binning, width, height, config, tile_row0):
         _require_finite("binning", table=table)  # the binned, depth-ordered rows
         return tile_raster.raster_forward_torch(
             table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts,
-            width, height, config,
+            width, height, config, tile_row0,
         )
 
     image, t_final, depth, _stats = tile_raster.render_tiled(

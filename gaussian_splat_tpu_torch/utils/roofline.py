@@ -24,6 +24,9 @@ import dataclasses
 # float32 outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# NVLink from one H100 SXM to the other cards of its host, each way (the
+# Hopper data sheet's 900 GB/s counts both ways).
+NVLINK_BYTES_PER_S = 450e9
 
 # Operations of one (pixel, splat) step of raster_fwd. Every step: 2
 # subtractions and 7 for the quadratic form (the 2 halvings are per splat and
@@ -117,3 +120,9 @@ def rank_perm_cost(n_splats: int, pairs: int, num_rows: int) -> KernelCost:
         bytes=pairs * 2 * I32 + (n_splats + 1) * I32 + num_rows * I32,
         flops=0,
     )
+
+
+def nvlink_ms(bytes_received: int) -> float:
+    """The least time one card takes to receive `bytes_received` from the
+    other cards of its host: the bound of a collective's exchange."""
+    return bytes_received / NVLINK_BYTES_PER_S * 1e3

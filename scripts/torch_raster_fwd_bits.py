@@ -1,4 +1,4 @@
-"""Are two checkouts' `raster_fwd` kernels bitwise the same function?
+"""Are two checkouts' `raster_fwd` kernels bitwise the same function, and as fast?
 
     python3 scripts/torch_raster_fwd_bits.py dump --root CHECKOUT --out FILE
     python3 scripts/torch_raster_fwd_bits.py compare FILE_A FILE_B
@@ -10,8 +10,13 @@ kernel, runs it on chip_smoke's small scenes and on the full-size bench scene
 case. `compare` holds two such files against each other with `torch.equal`,
 case by case over the cases both have, and exits non-zero on any difference.
 A change that alters no pixel's arithmetic (a thread layout, a cull) must
-leave every case bitwise equal. Needs one NVIDIA GPU for `dump`; run each dump
-in its own process, since both checkouts' packages have the same name.
+leave every case bitwise equal. `dump` also times the kernel on the full-size
+case, as chip_smoke.py does (`kernel_ms`: the median of 21 calls, one call per
+CUDA event pair, the host's issue time included; `kernel_ms_back_to_back`: 20
+calls between two events, median of 5), and `compare` prints both files'
+times beside each other. Needs one NVIDIA GPU for `dump`; run each dump in its
+own process, since both checkouts' packages have the same name; to compare
+times, alternate the two checkouts' dumps on one machine and one card.
 """
 
 import argparse
@@ -41,11 +46,22 @@ def dump(root, out):
         torch.cuda.synchronize()
         result[name] = {"rgbd": rgbd.cpu(), "t_final": t_final.cpu(), "walked": walked.cpu()}
         print(f"{name}: walked {int(walked.sum())} pairs", flush=True)
-    torch.save(result, out)
+        if name == "bench_full":
+            def launch():
+                cuda_raster.raster_forward(*args, cam.width, cam.height, cfg)
+
+            timing = {"root": os.path.abspath(root),
+                      "kernel_ms": chip_smoke.time_ms(launch, 21),
+                      "kernel_ms_back_to_back": chip_smoke.time_back_to_back_ms(launch, 5)}
+            print(f"bench_full: {timing}", flush=True)
+    torch.save({"cases": result, "timing": timing}, out)
 
 
 def compare(path_a, path_b):
-    a, b = torch.load(path_a), torch.load(path_b)
+    files = [torch.load(path_a), torch.load(path_b)]
+    for path, f in zip((path_a, path_b), files):
+        print(f"{path}: {f['timing']}")
+    a, b = (f["cases"] for f in files)
     shared = [name for name in a if name in b]
     if not shared:
         sys.exit("no case in common")

@@ -9,11 +9,7 @@ from gaussian_splat_tpu.config import TrainConfig as JaxTrainConfig
 from gaussian_splat_tpu_torch.config import RenderConfig as TorchConfig
 from gaussian_splat_tpu_torch.config import TrainConfig as TorchTrainConfig
 
-TPU_ONLY = {
-    "tiles_per_program", "dma_chunks", "exact_vjp",
-    "shard_exchange", "shard_capacity_margin", "a2a_capacity_factor",
-    "shard_capacity_floor",
-}
+TPU_ONLY = {"tiles_per_program", "dma_chunks", "exact_vjp"}
 
 
 def test_port_keeps_every_semantic_field():

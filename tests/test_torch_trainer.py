@@ -192,11 +192,32 @@ def test_fit_copies_the_model_and_lowers_the_loss():
 
 
 def test_mesh_is_refused_until_the_multi_gpu_slice():
+    """The multi-GPU slice is here: `mesh=` is taken, not refused. On a mesh
+    of one gloo rank in this process, fit(mesh=) renders through
+    render_sharded and fits what the single-process fit fits, bit for bit
+    (tests/test_torch_parallel.py runs 2 and 4 ranks)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gaussian_splat_tpu_torch.parallel.mesh import make_mesh, shard_model
+
     model, cam, target, cfg = _torch_fit_setup()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trainer.fit(model, cam, target, cfg, TrainConfig(num_steps=1), mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trainer.make_multiview_train_step(None, cfg, TrainConfig(), mesh=object())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = make_mesh(1, device="cpu", rank=0, init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        tc = TrainConfig(num_steps=2)
+        sharded, h_mesh = trainer.fit(shard_model(model, mesh), cam, target, cfg, tc,
+                                      mesh=mesh, log_every=1)
+        single, h_single = trainer.fit(model, cam, target, cfg, tc, log_every=1)
+        assert h_mesh == h_single and h_mesh[-1] < h_mesh[0]
+        for k in LEAVES:
+            assert torch.equal(getattr(sharded, k), getattr(single, k)), k
+        assert callable(trainer.make_multiview_train_step(None, cfg, TrainConfig(), mesh=mesh))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_optimizer_groups_follow_the_reference():
