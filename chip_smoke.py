@@ -45,7 +45,8 @@ One JSON object per line:
              ragged full-size case. `ms` = `kernel_ms`, one call per event
              pair (the host's time to issue it included); beside it
              `kernel_ms_back_to_back` (calls issued back to back) and, for
-             the backward's reduction, the profiler's `device_ms`
+             every kernel, the profiler's `device_ms` (and the bound's share
+             of both)
              Band cases (tile_row0 > 0) at small shapes and at full size.
   cli        `cli render`, `cli train`, `cli view` (served over HTTP, then
              terminated) and `cli validate` as subprocesses
@@ -459,6 +460,8 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
             lambda: cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0), reps),
         "kernel_ms_back_to_back": time_back_to_back_ms(
             lambda: cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0), reps),
+        "device_ms": device_ms(
+            lambda: cuda_raster.raster_forward(*args, w, h, config, tile_row0=row0)),
         "plain_ms": time_ms(
             lambda: tile_raster.raster_forward_torch(*args, w, h, config, row0),
             max(1, reps // 4), warmup=0),
@@ -496,6 +499,8 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
         "kernel_ms_back_to_back": time_back_to_back_ms(
             lambda: cuda_raster.raster_backward(*bwd_args, walked=walked, tile_row0=row0),
             reps),
+        "device_ms": device_ms(
+            lambda: cuda_raster.raster_backward(*bwd_args, walked=walked, tile_row0=row0)),
         "plain_ms": plain_bwd_ms,
         **roofline.backward_cost(
             n, pairs, n_tiles, w, h, num_rows, steps, kept_steps).fields(),
@@ -503,8 +508,12 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
 
     # -- rank_perm (the backward's rank order, from binning's own sort) ------
     sort_args = (binning.pair_src, pair_gauss, rank_starts, config)
-    perm = cuda_raster.rank_permutation_from_sort(*sort_args)
-    perm_again = cuda_raster.rank_permutation_from_sort(*sort_args)
+    kept = binning.kept
+
+    def rank_perm():
+        return cuda_raster.rank_permutation_from_sort(*sort_args, kept)
+
+    perm, perm_again = rank_perm(), rank_perm()
     plain_perm = rank_permutation_from_sort(*sort_args)
     keyed = torch.where(torch.arange(num_rows, device=DEVICE) < pairs, pair_gauss, n)
     rank = {
@@ -515,18 +524,19 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
         "equals_rank_sort": bool(torch.equal(
             perm, tile_raster.rank_permutation(pair_gauss, rank_starts, n))),
         "bitwise_repeatable": bool(torch.equal(perm, perm_again)),
-        "kernel_ms": time_ms(lambda: cuda_raster.rank_permutation_from_sort(*sort_args), reps),
-        "kernel_ms_back_to_back": time_back_to_back_ms(
-            lambda: cuda_raster.rank_permutation_from_sort(*sort_args), reps),
-        "device_ms": device_ms(lambda: cuda_raster.rank_permutation_from_sort(*sort_args)),
+        "kernel_ms": time_ms(rank_perm, reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(rank_perm, reps),
+        "device_ms": device_ms(rank_perm),
         "plain_ms": time_ms(lambda: rank_permutation_from_sort(*sort_args), reps),
         # the yardstick: ONE stable sort of the keyed ranks
         "library_ms": time_ms(lambda: torch.sort(keyed, stable=True), reps),
         "rank_sort_ms": time_ms(
             lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n), reps),
-        # the real pairs' slots and ranks and rank_starts read once, the
-        # permutation written once
-        **roofline.rank_perm_cost(n, pairs, num_rows).fields(),
+        # the real pairs' slots, the kept cells, the big rows' ranks and
+        # rank_starts read once, the permutation written once
+        **roofline.rank_perm_cost(
+            n, pairs, num_rows, kept.small.numel() + kept.big.numel(),
+            kept.big_ranks.numel()).fields(),
     }
 
     # -- segsum (on the rows the backward kernel made, through rank_perm's
@@ -842,12 +852,13 @@ def step_split(model, camera, target, cfg, tc):
 
     def build_perm():
         return cuda_raster.rank_permutation_from_sort(
-            binning.pair_src, binning.pair_gauss, binning.rank_starts, cfg)
+            binning.pair_src, binning.pair_gauss, binning.rank_starts, cfg, binning.kept)
 
     perm = build_perm()
     check(torch.equal(perm, tile_raster.rank_permutation(
         binning.pair_gauss, binning.rank_starts, n)),
         "step_split: the permutation from binning is not the rank sort's")
+    check(torch.equal(perm, build_perm()), "step_split: rank_perm differs from run to run")
     d_table = cuda_raster.segment_sum(rows, perm, binning.rank_starts, n)
     params = [getattr(model, k) for k in model.LEAVES]
 
@@ -1764,12 +1775,17 @@ def kernel_line(cases, launches, smi):
             "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
             "bound_by": full["bound_by"], "library_ms": full.get("library_ms"),
             "share_of_bound": full["bound_ms"] / full["kernel_ms"],
+            # the same on the device's own clock: for a small kernel the
+            # host's 16-36 us a launch hide the device's share
+            "share_of_bound_device": full["device_ms"] and full["bound_ms"] / full["device_ms"],
             "kernel_ms_back_to_back": full["kernel_ms_back_to_back"],
-            "device_ms": full.get("device_ms"),
+            "device_ms": full["device_ms"],
             "perm_ms": full.get("perm_ms"), "rank_sort_ms": full.get("rank_sort_ms"),
             "live_warp_pair_share": full.get("live_warp_pair_share"),
             # the same at full size on band FULL_BAND of BANDS (tile_row0 34)
             "band_case": FULL_BAND_CASE, "band_kernel_ms": band and band["kernel_ms"],
+            "band_kernel_ms_back_to_back": band and band["kernel_ms_back_to_back"],
+            "band_device_ms": band and band["device_ms"],
             "band_bound_ms": band and band["bound_ms"],
             "tolerance": (
                 {"atol": ATOL, "rtol": RTOL} if name == "raster_fwd"

@@ -23,8 +23,9 @@ What differs from the reference, by design: the sort key is ONE int64
 two-key fallback), the rect columns are gathered directly rather than packed
 into a code word, the pair list is exactly `pair_budget` long (the CUDA
 kernel needs no alignment padding), and the sort's indices are kept
-(`pair_src`): from them `rank_permutation_from_sort` gives the backward the
-pairs' rank order, which the reference sorts again.
+(`pair_src`), with the cells the keys were made from (`kept`): from them
+`rank_permutation_from_sort` gives the backward the pairs' rank order, which
+the reference sorts again.
 
 The sharded path (parallel/sharded_render.py) bins one horizontal band of a
 taller frame: `total_tiles_y` is the global tile-row count and `tile_row0`
@@ -45,6 +46,17 @@ import torch
 from gaussian_splat_tpu_torch.config import RenderConfig
 from gaussian_splat_tpu_torch.ops.falloff import sigma_bound
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
+
+
+class KeptCells(NamedTuple):
+    """Which emission slots (`emission_rows(M)`) hold a pair, as
+    `bin_gaussians` decided before its sort: the rank_perm kernel reads each
+    row's kept cells here instead of marking them again from `pair_src`."""
+
+    small: torch.Tensor  # (M, k_small) bool, row r = depth rank r
+    big: torch.Tensor  # (big, k_big) bool, the big tier's rows
+    big_ranks: torch.Tensor  # (big,) int32 depth rank of each big row (rows
+    #   with no kept cell may hold any index)
 
 
 class BinningResult(NamedTuple):
@@ -69,6 +81,8 @@ class BinningResult(NamedTuple):
     dropped_gaussians: torch.Tensor  # () int32 valid gaussians beyond the
     #   `max_active` cap (sharded path: in-band splats a device had to drop
     #   because its band capacity overflowed; 0 when max_active is None)
+    kept: KeptCells  # the slots behind `pair_src`: the keys' own masks, kept
+    #   (no device work beyond the sort's inputs)
 
     @property
     def num_active(self) -> int:
@@ -91,6 +105,12 @@ class EmissionRows(NamedTuple):
     @property
     def slots(self) -> int:
         return self.small * self.k_small + self.big * self.k_big
+
+    @property
+    def mask_words(self) -> int:
+        """32-bit words of the rank_perm kernel's kept-cell bitmask:
+        ceil(k / 32) a row (`rank_permutation_by_mask`)."""
+        return self.small * -(-self.k_small // 32) + self.big * -(-self.k_big // 32)
 
 
 def emission_rows(m: int, config: RenderConfig) -> EmissionRows:
@@ -460,9 +480,10 @@ def bin_gaussians(
         key = (tile << 32) | rank_e[:, None].to(torch.int64)
         return torch.where(ok, key, sentinel).reshape(-1)
 
+    kept = KeptCells(mask_s & fits[:m, None], mask_b & fits[big_idx][:, None], _i32(big_idx))
     flat_keys = torch.cat([
-        keys(cells_s, mask_s & fits[:m, None], ranks),
-        keys(cells_b, mask_b & fits[big_idx][:, None], _i32(big_idx)),
+        keys(cells_s, kept.small, ranks),
+        keys(cells_b, kept.big, kept.big_ranks),
     ])
     sorted_keys, src = torch.sort(flat_keys)
     sorted_keys = sorted_keys[:budget]
@@ -489,6 +510,7 @@ def bin_gaussians(
         tier_overflow=tier_ovf,
         pair_src=_i32(src[:budget]),
         dropped_gaussians=dropped,
+        kept=kept,
     )
 
 
@@ -529,3 +551,71 @@ def rank_permutation_from_sort(
     place = rank_starts.index_select(0, pair_gauss).add_(kept.index_select(0, pair_src)).sub_(1)
     perm = torch.empty_like(position)
     return perm.index_put_((torch.where(real, place, position),), position)
+
+
+def slot_divmod_magic(d: int):
+    """(m, s) with x // d == (x * m) >> s for every 0 <= x < 2**31, d >= 1:
+    s = 31 + ceil(log2 d), m = ceil(2**s / d) < 2**32 (Granlund and
+    Montgomery's round-up rule: m * d - 2**s < d <= 2**(s - 31)). The
+    rank_perm kernel finds a slot's row so, with no divide."""
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d), s
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """__popc of int64 values in [0, 2**32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+@torch.no_grad()
+def rank_permutation_by_mask(
+    pair_src: torch.Tensor,  # (B,) int32 BinningResult.pair_src
+    rank_starts: torch.Tensor,  # (M+1,) int32
+    kept: KeptCells,  # BinningResult.kept
+    config: RenderConfig,
+) -> torch.Tensor:
+    """(B,) int32, `rank_permutation_from_sort` by the rank_perm kernel's own
+    rule (csrc/rank_perm.cu), step for step: the plain mirror that the CPU
+    tests hold against the plain version; nothing on the card's path uses it.
+
+    `pack`: each emission row's kept cells become ceil(k / 32) 32-bit words
+    (`EmissionRows.mask_words`; word i holds cells 32i..32i+31, cell c as bit
+    c % 32), each with a record (the row's rank start plus the kept cells of
+    its earlier words, the bits). `place`: pair j of slot s — row and column
+    by `slot_divmod_magic` — goes to its word's record's place plus the
+    popcount of the bits below its own; padding pairs keep their places."""
+    n = rank_starts.shape[0] - 1
+    emission = emission_rows(n, config)
+    dev = pair_src.device
+    starts = rank_starts.long()
+    records = []
+    for cells, ranks in ((kept.small, torch.arange(n, device=dev)), (kept.big, kept.big_ranks)):
+        rows, k = cells.shape
+        words = -(-k // 32)
+        padded = torch.nn.functional.pad(cells.long(), (0, 32 * words - k)).view(rows, words, 32)
+        bits = (padded << torch.arange(32, device=dev)).sum(-1)
+        counts = padded.sum(-1)
+        # a row with no kept cell is read by no pair (its rank may be any index)
+        any_kept = counts.sum(-1) > 0
+        start = torch.where(any_kept, starts[torch.where(any_kept, ranks.long(), 0)], 0)
+        places = start[:, None] + torch.cumsum(counts, -1) - counts
+        records.append(torch.stack([places, bits], -1).view(-1, 2))
+    records = torch.cat([*records, torch.zeros((1, 2), dtype=torch.int64, device=dev)])
+    small_words, big_words = -(-emission.k_small // 32), -(-emission.k_big // 32)
+    small_slots = n * emission.k_small
+    position = torch.arange(pair_src.shape[0], dtype=torch.int64, device=dev)
+    real = position < rank_starts[n]
+    slot = torch.where(real, pair_src.long(), 0)
+    small = slot < small_slots
+    t = torch.where(small, slot, slot - small_slots)
+    (m_s, s_s), (m_b, s_b) = (slot_divmod_magic(k) for k in (emission.k_small, emission.k_big))
+    row = torch.where(small, (t * m_s) >> s_s, (t * m_b) >> s_b)
+    col = t - row * torch.where(small, emission.k_small, emission.k_big)
+    word = torch.where(small, row * small_words, n * small_words + row * big_words) + (col >> 5)
+    record = records[torch.where(real, word, records.shape[0] - 1)]
+    place = record[:, 0] + _popcount32(record[:, 1] & ((1 << (col & 31)) - 1))
+    perm = torch.empty_like(pair_src)
+    return perm.index_put_((torch.where(real, place, position),), position.to(torch.int32))

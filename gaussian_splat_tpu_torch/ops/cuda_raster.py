@@ -21,7 +21,11 @@ global tile row, 0 for a whole frame): pixel centres are global, the images
 hold the band's rows. segsum, bound by the
 bytes of its row gather, splits its work by pairs: a warp per run of ranks
 plus sorted positions, owning the ranks placed in its run (the owner rule's
-plain mirror is `tile_raster.segsum_runs`).
+plain mirror is `tile_raster.segsum_runs`). rank_perm packs the kept cells
+binning decided (`BinningResult.kept`) into a bitmask of ceil(k / 32) words
+an emission row, each with its place (8 MB at 1M splats, held in L2), then
+adds each pair into perm at its word's place plus the popcount of the bits
+before its slot (the plain mirror is `binning.rank_permutation_by_mask`).
 
 A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
@@ -67,7 +71,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "raster_fwd": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
     "raster_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
-    "rank_perm": [_P] * 5 + [_I] * 5 + [_P],
+    "rank_perm": [_P] * 7 + [_I] * 5 + [_P],
     "segsum": [_P] * 4 + [_I, _I, _P],
 }
 
@@ -202,25 +206,30 @@ def _launch_backward(
     return rows
 
 
-def _launch_rank_perm(pair_src, pair_gauss, rank_starts, config) -> torch.Tensor:
+def _launch_rank_perm(pair_src, rank_starts, config, kept) -> torch.Tensor:
     num_rows, n = pair_src.shape[0], rank_starts.shape[0] - 1
-    _check("pair_src", pair_src, torch.int32, (num_rows,))
-    _check("pair_gauss", pair_gauss, torch.int32, (num_rows,), pair_src)
-    _check("rank_starts", rank_starts, torch.int32, (n + 1,), pair_src)
+    if kept is None:
+        raise ValueError("rank_perm reads binning's kept cells: pass BinningResult.kept")
     slots = binning_ops.emission_rows(n, config)
+    _check("pair_src", pair_src, torch.int32, (num_rows,))
+    _check("rank_starts", rank_starts, torch.int32, (n + 1,), pair_src)
+    _check("kept.small", kept.small, torch.bool, (n, slots.k_small), pair_src)
+    _check("kept.big", kept.big, torch.bool, (slots.big, slots.k_big), pair_src)
+    _check("kept.big_ranks", kept.big_ranks, torch.int32, (slots.big,), pair_src)
     launch = _launcher("rank_perm")
     dev = pair_src.device
-    # one allocation for the kernel's scratch (one int per emission slot,
-    # rounded up to 16 bytes) and the permutation after it: each torch.empty
-    # costs the launch microseconds of the host's time
-    scratch = -(-slots.slots // 4) * 4
+    # one allocation for the kernel's records (an int2 a bitmask word,
+    # ceil(k / 32) words a row) and the permutation after them: each
+    # torch.empty costs the launch microseconds of the host's time
+    scratch = -(-2 * slots.mask_words // 4) * 4
     with _on(dev):
         buf = torch.empty((max(scratch + num_rows, 1),), dtype=torch.int32, device=dev)
         perm = buf[scratch : scratch + num_rows]
         err = launch(
-            pair_src.data_ptr(), pair_gauss.data_ptr(), rank_starts.data_ptr(),
-            buf.data_ptr(), perm.data_ptr(), n, num_rows, slots.k_small,
-            slots.k_big, slots.big, _stream(dev),
+            pair_src.data_ptr(), kept.small.data_ptr(), kept.big.data_ptr(),
+            kept.big_ranks.data_ptr(), rank_starts.data_ptr(), buf.data_ptr(),
+            perm.data_ptr(), n, num_rows, slots.k_small, slots.k_big, slots.big,
+            _stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"rank_perm launch failed: CUDA error {err}")
@@ -319,16 +328,19 @@ def rank_permutation_from_sort(
     pair_gauss: torch.Tensor,  # (B,) i32
     rank_starts: torch.Tensor,  # (M+1,) i32, over the M active ranks
     config: RenderConfig,
+    kept: Optional[binning_ops.KeptCells] = None,  # BinningResult.kept
 ) -> torch.Tensor:
     """The rank-order kernel: (B,) i32, the stable sort of the pair list by
     depth rank (`tile_raster.rank_permutation`), read from binning's own sort
     with no second one.
 
-    CUDA tensors go to the kernel (or raise); CPU tensors to the plain
-    version, `binning.rank_permutation_from_sort`."""
+    CUDA tensors go to the kernel, which reads the kept cells binning
+    decided (`kept`, required there; it does not read `pair_gauss`), or
+    raise; CPU tensors to the plain version,
+    `binning.rank_permutation_from_sort`, which needs no `kept`."""
     if not pair_src.is_cuda:
         return binning_ops.rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
-    return _launch_rank_perm(pair_src, pair_gauss, rank_starts, config)
+    return _launch_rank_perm(pair_src, rank_starts, config, kept)
 
 
 def segment_sum(
@@ -351,7 +363,7 @@ class _Raster(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, pair_gauss, pair_src, tile_offsets, tile_counts,
-                rank_starts, width, height, config, tile_row0):
+                rank_starts, kept, width, height, config, tile_row0):
         # the early exit is the kernel's; the plain forward walks everything
         walked = torch.empty_like(tile_counts) if table.is_cuda else None
         rgbd, t_final = raster_forward(
@@ -363,6 +375,7 @@ class _Raster(torch.autograd.Function):
             rgbd, t_final, walked,
         )
         ctx.frame = (width, height, config, tile_row0)
+        ctx.kept = kept  # binning's masks, not inputs of this Function
         return rgbd, t_final
 
     @staticmethod
@@ -376,9 +389,9 @@ class _Raster(torch.autograd.Function):
             d_rgbd.contiguous(), d_t_final.contiguous(), width, height, config,
             walked=walked, tile_row0=tile_row0,
         )
-        perm = rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
+        perm = rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config, ctx.kept)
         d_table = segment_sum(rows, perm, rank_starts, table.shape[0])
-        return d_table, *(None,) * 9
+        return d_table, *(None,) * 10
 
 
 def rasterize(
@@ -395,7 +408,8 @@ def rasterize(
     `num_active` ranks; `tile_row0` places a band of `height` rows."""
     return _Raster.apply(
         table, binning.pair_gauss, binning.pair_src, binning.tile_offsets,
-        binning.tile_counts, binning.rank_starts, width, height, config, tile_row0,
+        binning.tile_counts, binning.rank_starts, binning.kept, width, height, config,
+        tile_row0,
     )
 
 

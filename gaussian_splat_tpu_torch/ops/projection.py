@@ -57,6 +57,19 @@ def _rotmat_rows(quats: torch.Tensor):
     )
 
 
+def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
+    """(…,4) wxyz quaternions (not necessarily unit; the norm is clipped at
+    1e-8) → (…,3,3) rotations: `_rotmat_rows`, the algebra of the projection
+    and of densify, stacked."""
+    return torch.stack(_rotmat_rows(quats), dim=-1).unflatten(-1, (3, 3))
+
+
+def compute_cov3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Σ3D = (R·S)(R·S)ᵀ as full (…,3,3), S = diag(scales)."""
+    m = quat_to_rotmat(quats) * scales[..., None, :]  # R @ diag(scales)
+    return m @ m.transpose(-1, -2)
+
+
 def _cov_view_components(quats, scales, W):
     """Upper-triangular components of Σview = (W·R)·S²·(W·R)ᵀ, elementwise.
 

@@ -111,13 +111,14 @@ def segsum_cost(n_splats: int, pairs: int) -> KernelCost:
     )
 
 
-def rank_perm_cost(n_splats: int, pairs: int, num_rows: int) -> KernelCost:
-    """rank_perm: reads the real pairs' emission slots and ranks and
-    `rank_starts`, writes the (num_rows,) int32 permutation (padding rows
-    included); a handful of integer operations a pair, counted as none
-    beside the bytes."""
+def rank_perm_cost(n_splats: int, pairs: int, num_rows: int, slots: int,
+                   big_rows: int) -> KernelCost:
+    """rank_perm: reads the real pairs' emission slots, binning's kept cells
+    (a byte a slot) and the big rows' ranks, and `rank_starts`; writes the
+    (num_rows,) int32 permutation (padding rows included); a handful of
+    integer operations a pair, counted as none beside the bytes."""
     return KernelCost(
-        bytes=pairs * 2 * I32 + (n_splats + 1) * I32 + num_rows * I32,
+        bytes=pairs * I32 + slots + big_rows * I32 + (n_splats + 1) * I32 + num_rows * I32,
         flops=0,
     )
 

@@ -1,9 +1,10 @@
 """The backward's reduction at the bench shape on one GPU: the rank_perm
-kernel against its plain version and the rank sort, the segsum kernel
-against another checkout's and against edited copies of its source, and the
+kernel against its plain version and the rank sort, both kernels against
+another checkout's and against edited copies of their sources, and the
 host's time to issue each wrapper's launch.
 
-    python3 scripts/torch_segsum_sweep.py [--other ROOT] [--source FILE ...] [--out FILE]
+    python3 scripts/torch_segsum_sweep.py [--other ROOT] [--source FILE ...]
+        [--rank-source FILE ...] [--out FILE]
 
 Builds the bench scene of chip_smoke.py (1M splats, 1920x1080), its binning
 and the backward kernel's gradient rows under seeded unit-scale cotangents,
@@ -14,10 +15,18 @@ segments. Then:
     (`binning.rank_permutation_from_sort`), the rank sort
     (`tile_raster.rank_permutation`) and one stable `torch.sort`, checked
     equal where they compute the same permutation;
+  * rank_perm as the package builds it, each --rank-source FILE (a copy of
+    csrc/rank_perm.cu) and --other ROOT's csrc/rank_perm.cu (either C
+    interface: the package's, which reads binning's kept cells, or the
+    slot-scratch design's, which reads pair_gauss and takes one int of
+    scratch a slot), in turns as segsum's below, each equal to the rank
+    sort and bitwise over two calls, with its device time also by kernel
+    and with the L2 flushed before each call (`cold_by_kernel`: the
+    backward finds its inputs cold, after raster_bwd's 290 MB);
   * segsum as the package builds it, each --source FILE (a copy of
-    csrc/segsum.cu with other settings, the same C interface) and --other
-    ROOT's csrc/segsum.cu (the parent's design: an int64 permutation, no
-    `num_rows` argument), in turns: other, package, sources, package, other.
+    csrc/segsum.cu with other settings) and --other ROOT's csrc/segsum.cu
+    (both with the package's C interface), in turns: other, package,
+    sources, package, other.
     Each is checked within chip_smoke's gradient tolerance of the plain
     version, bitwise over two calls, and run on both inputs;
   * the host's microseconds per call of the segsum and rank_perm wrappers
@@ -48,11 +57,13 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (exits with code 2 when there is no GPU)
 from gaussian_splat_tpu_torch import RenderConfig, _build, calibrate_render_config  # noqa: E402
+from gaussian_splat_tpu_torch.ops import binning as binning_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
 from gaussian_splat_tpu_torch.ops.binning import rank_permutation_from_sort  # noqa: E402
 from gaussian_splat_tpu_torch.utils import roofline  # noqa: E402
 
 REPS = 20
+L2_FLUSH_BYTES = 128 << 20  # written before a call to find the 50 MB L2 cold
 HOST_CALLS = 200  # wrapper calls timed on the host's clock, then one sync
 
 
@@ -78,16 +89,16 @@ def bench_rows():
     return rows, binning, config, model.num_gaussians, pairs
 
 
-def build(src, workdir, parents):
-    """(segsum_launch of one source built with the package's flags, the
-    compiler's register and spill lines). The package's C interface is
-    (rows, perm, rank_starts, out, n, num_rows, stream); the parent's
-    (`parents`) has no num_rows."""
-    lib = pathlib.Path(workdir) / f"{src.parent.parent.parent.name}-{src.stem}.so"
+def build(src, workdir, kernel, argtypes=None):
+    """(<kernel>_launch of one source built with the package's flags and
+    the package's C interface or `argtypes`, the compiler's register and
+    spill lines)."""
+    name = f"{src.parent.parent.parent.name}-{src.stem}-{len(os.listdir(workdir))}.so"
+    lib = pathlib.Path(workdir) / name
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
     done = subprocess.run(cmd, check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib)).segsum_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (1 if parents else 2) + [ctypes.c_void_p]
+    fn = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
+    fn.argtypes = argtypes or cuda_raster._ARGTYPES[kernel]
     fn.restype = ctypes.c_int
     report = [line.strip() for line in (done.stdout + done.stderr).splitlines()
               if "registers" in line or "spill" in line]
@@ -114,6 +125,56 @@ def device_ms_by_kernel(fn, calls=5):
             name = e.name[:60]
             by[name] = by.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / calls
     return dict(sorted(by.items(), key=lambda kv: -kv[1]))
+
+
+def rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bound):
+    """rank_perm of the package, of each --rank-source and of --other, in
+    turns: other, package, sources, package, other."""
+    pair_src, pair_gauss, rank_starts, config = sort_args
+    n, num_rows = rank_starts.shape[0] - 1, pair_src.shape[0]
+    emission = binning_ops.emission_rows(n, config)
+    # enough scratch for either design: one int a slot or the records
+    scratch = -(-max(emission.slots, 2 * emission.mask_words) // 4) * 4
+    flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32, device="cuda")
+
+    def built(src):
+        slot_scratch = "kept_small" not in src.read_text()  # the slot-scratch design
+        argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn, report = build(src, workdir, "rank_perm", argtypes if slot_scratch else None)
+        inputs = ((pair_gauss, rank_starts) if slot_scratch
+                  else (kept.small, kept.big, kept.big_ranks, rank_starts))
+
+        def go():
+            buf = torch.empty((scratch + num_rows,), dtype=torch.int32, device="cuda")
+            err = fn(pair_src.data_ptr(), *(x.data_ptr() for x in inputs), buf.data_ptr(),
+                     buf[scratch:].data_ptr(), n, num_rows, emission.k_small, emission.k_big,
+                     emission.big, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"rank_perm launch failed: CUDA error {err}")
+            return buf[scratch:]
+        return go, report
+
+    package = ("package", lambda: cuda_raster.rank_permutation_from_sort(*sort_args, kept))
+    turns = [package]
+    for src in opts.rank_source:
+        go, report = built(pathlib.Path(src).resolve())
+        emit(lines, what="rank_perm_build", design=src, ptxas=report)
+        turns.append((src, go))
+    turns.append(package)
+    if opts.other:
+        other_src = pathlib.Path(opts.other) / "gaussian_splat_tpu_torch" / "csrc" / "rank_perm.cu"
+        other = ("other", built(other_src.resolve())[0])
+        turns = [other, *turns, other]
+    for name, go in turns:
+        got, again = go(), go()
+        t = timings(go)
+        emit(lines, what="rank_perm_turn", design=name, gpu=smi,
+             equals_rank_sort=bool(torch.equal(got, sorted_perm)),
+             bitwise_repeatable=bool(torch.equal(got, again)), **t, bound_ms=bound,
+             share_of_bound=bound / t["ms"],
+             share_of_bound_device=bound / t["device_ms"] if t["device_ms"] else None,
+             by_kernel=device_ms_by_kernel(go),
+             cold_by_kernel=device_ms_by_kernel(lambda: (flush.zero_(), go())))
 
 
 def host_us(fn, calls=HOST_CALLS):
@@ -170,6 +231,8 @@ def main():
     parser.add_argument("--other", help="root of another checkout whose segsum to time")
     parser.add_argument("--source", nargs="*", default=[],
                         help="edited copies of csrc/segsum.cu to time beside it")
+    parser.add_argument("--rank-source", nargs="*", default=[],
+                        help="edited copies of csrc/rank_perm.cu to time beside it")
     parser.add_argument("--out", help="also write every line, as one JSON list, here")
     opts = parser.parse_args()
     lines = []
@@ -180,19 +243,23 @@ def main():
 
     # -- the permutation ---------------------------------------------------
     sort_args = (binning.pair_src, pair_gauss, rank_starts, config)
-    perm = cuda_raster.rank_permutation_from_sort(*sort_args)
+    kept = binning.kept
+
+    def rank_perm():
+        return cuda_raster.rank_permutation_from_sort(*sort_args, kept)
+
+    perm = rank_perm()
     sorted_perm = tile_raster.rank_permutation(pair_gauss, rank_starts, n)
+    bound = roofline.rank_perm_cost(n, pairs, rows.shape[0], kept.small.numel() + kept.big.numel(),
+                                    kept.big_ranks.numel()).attainable_ms()
     keyed = torch.where(torch.arange(rows.shape[0], device="cuda") < pairs, pair_gauss, n)
     emit(lines, what="rank_perm", gpu=smi, n_splats=n, pairs=pairs, rows=rows.shape[0],
          equals_rank_sort=bool(torch.equal(perm, sorted_perm)),
          plain_equals_rank_sort=bool(torch.equal(
              rank_permutation_from_sort(*sort_args), sorted_perm)),
-         bound_ms=roofline.rank_perm_cost(n, pairs, rows.shape[0]).attainable_ms(),
-         kernel=timings(lambda: cuda_raster.rank_permutation_from_sort(*sort_args)),
-         host_us=host_us(lambda: cuda_raster.rank_permutation_from_sort(*sort_args)),
+         bound_ms=bound, kernel=timings(rank_perm), host_us=host_us(rank_perm),
          plain=timings(lambda: rank_permutation_from_sort(*sort_args)),
-         kernel_by_kernel=device_ms_by_kernel(
-             lambda: cuda_raster.rank_permutation_from_sort(*sort_args)),
+         kernel_by_kernel=device_ms_by_kernel(rank_perm),
          rank_sort=timings(lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n)),
          torch_sort=timings(lambda: torch.sort(keyed, stable=True)))
 
@@ -204,16 +271,13 @@ def main():
          wrapper_us=host_us(lambda: cuda_raster.segment_sum(rows, perm, rank_starts, n)),
          **host_pieces(rows, perm, rank_starts, n))
 
-    def call(fn, other, case):
-        """One launch of a built segsum on `case`; `other`: the parent's C
-        interface (int64 permutation, no num_rows)."""
+    def call(fn, case):
+        """One launch of a built segsum on `case`."""
         r, p, s, nn, _ = inputs[case]
-        p = p.long() if other else p
-        extra = () if other else (r.shape[0],)
 
         def go():
             out = torch.empty((nn, cuda_raster.ROW_COLS), device="cuda")
-            err = fn(r.data_ptr(), p.data_ptr(), s.data_ptr(), out.data_ptr(), nn, *extra,
+            err = fn(r.data_ptr(), p.data_ptr(), s.data_ptr(), out.data_ptr(), nn, r.shape[0],
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"segsum launch failed: CUDA error {err}")
@@ -221,27 +285,28 @@ def main():
         return go
 
     with tempfile.TemporaryDirectory() as workdir:
-        # (name, built launch function or None for the package's wrapper, other?)
-        package = ("package", None, False)
+        rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bound)
+        # (name, built launch function or None for the package's wrapper)
+        package = ("package", None)
         turns = [package]
         for src in opts.source:
-            fn, report = build(pathlib.Path(src).resolve(), workdir, False)
+            fn, report = build(pathlib.Path(src).resolve(), workdir, "segsum")
             emit(lines, what="segsum_build", design=src, ptxas=report)
-            turns.append((src, fn, False))
+            turns.append((src, fn))
         turns.append(package)
         if opts.other:
             other_src = pathlib.Path(opts.other) / "gaussian_splat_tpu_torch" / "csrc" / "segsum.cu"
-            other = ("other (int64 permutation)", build(other_src.resolve(), workdir, True)[0], True)
+            other = ("other", build(other_src.resolve(), workdir, "segsum")[0])
             turns = [other, *turns, other]
         for case, (r, p, s, nn, real) in inputs.items():
             want = tile_raster.segment_sum_torch(r, p, s, nn)
             bound = roofline.segsum_cost(nn, real).attainable_ms()
-            for name, fn, is_other in turns:
+            for name, fn in turns:
                 if fn is None:
                     def go(r=r, p=p, s=s, nn=nn):
                         return cuda_raster.segment_sum(r, p, s, nn)
                 else:
-                    go = call(fn, is_other, case)
+                    go = call(fn, case)
                 got, again = go(), go()
                 err, over = chip_smoke.grad_errors(got, want)
                 t = timings(go)

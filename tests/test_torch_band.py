@@ -134,9 +134,12 @@ def test_band_binning_equals_jax(case):
     # the last of 4 bands over 6 rows is padding: it holds no pair
     assert (int(tb.num_pairs) == 0) == (case == "4bands-b3-padded")
     # the slot layout is emission_rows(m): the rank order read from binning's
-    # sort is the rank sort's, element for element
+    # sort is the rank sort's, element for element, and so is the rank_perm
+    # kernel's rule (its plain mirror) on the band's kept cells
     perm = cuda_raster.rank_permutation_from_sort(tb.pair_src, tb.pair_gauss, tb.rank_starts, tcfg)
     assert torch.equal(perm, tile_raster.rank_permutation(tb.pair_gauss, tb.rank_starts, m))
+    assert torch.equal(
+        binning.rank_permutation_by_mask(tb.pair_src, tb.rank_starts, tb.kept, tcfg), perm)
     assert binning.emission_rows(m, tcfg).small == m
 
 

@@ -1,4 +1,5 @@
-"""Port project_gaussians vs JAX project_gaussians, field by field."""
+"""Port project_gaussians vs JAX project_gaussians, field by field, and the
+port's quat_to_rotmat and compute_cov3d vs JAX's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -67,3 +68,23 @@ def test_view_directions_match_jax():
         np.asarray(jax_proj.view_directions(jnp.asarray(leaves["means"]), jc)),
         atol=1e-6,
     )
+
+
+@pytest.mark.parametrize("fn", ["quat_to_rotmat", "compute_cov3d"])
+def test_rotmat_and_cov3d_match_jax(fn):
+    """Numpy-seeded quaternions of every norm (a zero one among them, whose
+    norm is clipped at 1e-8) and splat scales (e^-5 to 1, so Σ is of order 1
+    at most), batched (…, 4): atol 1e-6 in float32, a few ulps of an entry
+    of order 1 (the two normalise by norms that differ in the last bit)."""
+    rng = np.random.default_rng(11)
+    norms = rng.uniform(0.01, 5.0, (5, 40, 1))
+    quats = (rng.standard_normal((5, 40, 4)) * norms).astype(np.float32)
+    quats[0, 0] = 0.0
+    scales = np.exp(rng.uniform(-5.0, 0.0, (5, 40, 3))).astype(np.float32)
+    args = (quats,) if fn == "quat_to_rotmat" else (quats, scales)
+    got = getattr(torch_proj, fn)(*(torch.from_numpy(a) for a in args)).numpy()
+    want = np.asarray(getattr(jax_proj, fn)(*(jnp.asarray(a) for a in args)))
+    assert got.shape == want.shape == (5, 40, 3, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    if fn == "quat_to_rotmat":
+        np.testing.assert_array_equal(got[0, 0], np.eye(3, dtype=np.float32))

@@ -43,6 +43,9 @@ def test_permutation_from_binning_equals_the_rank_sort(case):
     got = binning.rank_permutation_from_sort(b.pair_src, b.pair_gauss, b.rank_starts, cfg)
     assert b.pair_src.dtype == got.dtype == want.dtype == torch.int32
     assert torch.equal(got, want)
+    # the rank_perm kernel's rule on binning's kept cells, through its plain mirror
+    by_mask = binning.rank_permutation_by_mask(b.pair_src, b.rank_starts, b.kept, cfg)
+    assert torch.equal(by_mask, want)
     real = int(b.rank_starts[-1])
     # the padding tail keeps its places
     assert torch.equal(got[real:], torch.arange(real, got.shape[0], dtype=torch.int32))
@@ -57,20 +60,25 @@ def test_permutation_from_binning_equals_the_rank_sort(case):
     padding=st.integers(0, 6),
     seed=st.integers(0, 2**16),
 )
+@hypothesis.example(n=0, k_small=6, k_big=32, capacity=4, padding=5, seed=0)  # no real pair
+@hypothesis.example(n=30, k_small=33, k_big=70, capacity=12, padding=3, seed=3)  # 2 and 3 words
 def test_permutation_from_sort_on_synthetic_emission(n, k_small, k_big, capacity, padding, seed):
     """Any emission that keeps binning's layout — N rows of k_small slots, then
     big_capacity(N) rows of k_big, each row's kept cells on rising tiles, the
     big ranks' small rows and the spare big rows empty — sorted by
     (tile, rank) as binning sorts it: the permutation rebuilt from the sort's
-    indices equals the stable rank sort."""
+    indices equals the stable rank sort, and so does the rank_perm kernel's
+    bitmask rule (its plain mirror `binning.rank_permutation_by_mask`) on
+    rows of one word and of several, empty rows, padding and no real pair."""
     rng = np.random.default_rng(seed)
     cfg = RenderConfig(small_tiles_per_gaussian=k_small, max_tiles_per_gaussian=k_big,
                        big_tier_capacity=capacity)
     m_big = cfg.big_capacity(n)
     big = np.sort(rng.choice(n, size=int(rng.integers(0, m_big + 1)), replace=False))
     sentinel = 1 << 40
-    keys, ranks = [], []
-    tiers = ((False, k_small, range(n)), (True, k_big, [*big, *[-1] * (m_big - len(big))]))
+    keys, ranks, kept_rows = [], [], ([], [])
+    big_ranks = [*big, *[-1] * (m_big - len(big))]  # spare rows: no kept cell, any rank
+    tiers = ((False, k_small, range(n)), (True, k_big, big_ranks))
     for big_tier, width, row_ranks in tiers:
         for r in row_ranks:
             on = r >= 0 and big_tier == (r in big)
@@ -78,6 +86,7 @@ def test_permutation_from_sort_on_synthetic_emission(n, k_small, k_big, capacity
             tiles = np.cumsum(rng.integers(1, 4, width))  # rising along the row
             keys += [(int(t) << 32) | int(r) if k else sentinel for t, k in zip(tiles, kept)]
             ranks += [int(r) if k else 0 for k in kept]
+            kept_rows[big_tier].append(kept)
     keys, ranks = torch.tensor(keys, dtype=torch.int64), torch.tensor(ranks, dtype=torch.int32)
     real = int((keys < sentinel).sum())
     budget = min(real + padding, keys.shape[0])
@@ -90,6 +99,27 @@ def test_permutation_from_sort_on_synthetic_emission(n, k_small, k_big, capacity
     got = binning.rank_permutation_from_sort(*args, cfg)
     assert torch.equal(got, tile_raster.rank_permutation(args[1], args[2], n))
     assert torch.equal(cuda_raster.rank_permutation_from_sort(*args, cfg), got)
+    small, big_cells = (torch.tensor(np.array(rows, bool).reshape(-1, k))
+                        for rows, k in zip(kept_rows, (k_small, k_big)))
+    kept = binning.KeptCells(small, big_cells, torch.tensor(big_ranks, dtype=torch.int32))
+    by_mask = binning.rank_permutation_by_mask(args[0], args[2], kept, cfg)
+    assert by_mask.dtype == torch.int32 and torch.equal(by_mask, got)
+
+
+def test_slot_divmod_magic():
+    """The rank_perm kernel's divide-free row of a slot: x // d == (x * m) >> s
+    for every divisor a row width can take and dividends on both sides of
+    every multiple, up to 2**31 − 1; m fits 32 bits, x * m 63."""
+    rng = np.random.default_rng(0)
+    for d in [*range(1, 300), 1023, 1024, 1025, 65537, 2**20 + 7, 2**30 + 1, 2**31 - 1]:
+        m, s = binning.slot_divmod_magic(d)
+        assert 0 < m < 2**32 and s < 64
+        q = rng.integers(0, (2**31 - 1) // d + 1, 200)
+        x = np.concatenate([q * d, q * d - 1, q * d + d - 1, rng.integers(0, 2**31, 200),
+                            [0, 1, d - 1, d, 2**31 - 1]])
+        x = [int(v) for v in x if 0 <= v < 2**31]
+        assert [(v * m) >> s for v in x] == [v // d for v in x], d
+        assert (2**31 - 1) * m < 2**63
 
 
 @hypothesis.settings(max_examples=100, deadline=None, derandomize=True)
@@ -190,9 +220,11 @@ def test_explicit_backward_takes_the_permutation_from_binning(kind, seed, width,
     def no_sort(*a, **k):
         raise AssertionError("the backward sorted the pairs again")
 
-    def from_sort(pair_src, pair_gauss, rank_starts, config):
+    def from_sort(pair_src, pair_gauss, rank_starts, config, kept):
         perm = binning.rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
-        built.append(torch.equal(perm, real_sort(pair_gauss, rank_starts, rank_starts.shape[0] - 1)))
+        by_mask = binning.rank_permutation_by_mask(pair_src, rank_starts, kept, config)
+        built.append(torch.equal(perm, real_sort(pair_gauss, rank_starts, rank_starts.shape[0] - 1))
+                     and torch.equal(by_mask, perm))
         return perm
 
     monkeypatch.setattr(tile_raster, "rank_permutation", no_sort)
