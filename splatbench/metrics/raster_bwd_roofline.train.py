@@ -1,0 +1,10 @@
+"""raster_bwd's roofline bound (splatbench/costs.py on the reference's counts)
+over its device time by name from the profiler, in %."""
+
+from splatbench.metrics._read import roofline
+
+UNIT, LAYER, MOVES, SOURCE = "%", "raster kernels", "step_ms", "device_trace"
+
+
+def read(r):
+    return roofline(r, "raster_bwd")
