@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gaussian_splat_tpu_torch._device import DeviceLike, require_device
 from gaussian_splat_tpu_torch.camera import Camera
@@ -135,6 +136,7 @@ def calibrate_render_config(
     big_headroom: float = 1.2,
     mesh_ndev: Optional[int] = None,
     margin_headroom: float = 2.0,
+    mesh=None,
 ) -> RenderConfig:
     """Measure scene-dependent capacities and return a tightened config.
 
@@ -158,37 +160,50 @@ def calibrate_render_config(
     minus the N/D resident share, scaled by `margin_headroom` — so the
     sharded compaction cap stays as tight as the scene allows without drops.
 
+    With `mesh` (a `parallel.mesh.make_mesh` mesh), call it on every rank
+    with that rank's block of the model (`shard_model`): each rank counts
+    its own rows, the counts are summed over the ranks camera by camera,
+    and every rank returns the config that the whole model gives with
+    `mesh_ndev` = the mesh's size.
+
     `cameras` is one Camera or an iterable; the max over cameras is used."""
     if isinstance(cameras, Camera):
         cameras = [cameras]
     n = model.num_gaussians
-    max_sum_area = 0
-    max_eligible = 0
-    max_incidence = 0
+    if mesh is not None:
+        if mesh_ndev not in (None, mesh.size()):
+            raise ValueError(f"mesh_ndev={mesh_ndev} on a mesh of {mesh.size()} ranks")
+        mesh_ndev = mesh.size()
+        n *= mesh_ndev
+    bands = mesh_ndev if mesh_ndev is not None and mesh_ndev > 1 else 0
+    # per camera: rect cells, big-tier-eligible rows, each band's incidence
+    counts = []
     for cam in cameras:
         proj, _ = _project_and_shade(model, cam, config)
         _tx0, _ty0, w, h, _cl = tile_rects(
             proj.means2d, proj.radii, proj.valid, cam.width, cam.height,
             config, extents=proj.extents,
         )
-        area = w * h
-        max_sum_area = max(max_sum_area, int(area.sum()))
-        max_eligible = max(
-            max_eligible, int((area > config.small_tiles_per_gaussian).sum())
-        )
-        if mesh_ndev is not None and mesh_ndev > 1:
-            band_h = -(-config.tiles_y(cam.height) // mesh_ndev) * config.tile_height
+        area = (w * h).to(torch.int64)
+        row = [area.sum(), (area > config.small_tiles_per_gaussian).sum()]
+        if bands:
+            band_h = -(-config.tiles_y(cam.height) // bands) * config.tile_height
             my = proj.means2d[:, 1]
             ry = quantize_extent_up(proj.extents[:, 1])
-            for d in range(mesh_ndev):
+            for d in range(bands):
                 lo, hi = float(d * band_h), float((d + 1) * band_h)
-                incidence = int((proj.valid & (my + ry > lo) & (my - ry < hi)).sum())
-                max_incidence = max(max_incidence, incidence)
+                row.append((proj.valid & (my + ry > lo) & (my - ry < hi)).sum())
+        counts.append(torch.stack(row))
+    counts = torch.stack(counts)
+    if mesh is not None:
+        dist.all_reduce(counts, group=mesh.get_group())
+    top = [int(v) for v in counts.max(dim=0).values.cpu()]
+    max_sum_area, max_eligible, max_incidence = top[0], top[1], max(top[2:], default=0)
 
     ppg = max(max_sum_area * pair_headroom / max(n, 1), 0.5)
     big_cap = max(-(-int(max_eligible * big_headroom) // 1024) * 1024, 64)
     updates = dict(pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap)
-    if mesh_ndev is not None and mesh_ndev > 1:
+    if bands:
         tail = max(max_incidence - -(-n // mesh_ndev), 0)
         # margin 1.0 already makes the cap N (no compaction beyond that):
         # tiny scenes with band-spanning splats can measure a tail above

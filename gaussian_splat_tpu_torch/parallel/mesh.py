@@ -16,7 +16,9 @@ JAX package drives every device from one process and places arrays on a
     rank (every rank on this host).
   * `shard_model(model, mesh)`: this rank's equal row block of every leaf, on
     this rank's device, as fresh parameters (each rank's optimizer then
-    updates its own block only).
+    updates its own block only). A model too large for one process is given
+    as a function of a row range instead, with its splat count: each rank
+    then makes its own block alone.
 """
 
 from __future__ import annotations
@@ -111,21 +113,32 @@ def mesh_device(mesh: DeviceMesh, axis_name: str = "dev") -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def shard_model(model, mesh: DeviceMesh, axis_name: str = "dev") -> GaussianModel:
+def shard_model(
+    model, mesh: DeviceMesh, axis_name: str = "dev", num_gaussians: Optional[int] = None,
+) -> GaussianModel:
     """This rank's block of rows of every leaf (rows [r·N/D, (r+1)·N/D)), on
     this rank's device, as a new GaussianModel. N must divide by D: pad the
-    model first (`pad_to_multiple`)."""
+    model first (`pad_to_multiple`).
+
+    With `num_gaussians` = N, `model` is instead a function (start, stop) →
+    rows [start, stop) of the model's five leaves, by name: the rank makes
+    only its own block, and no process ever holds the whole model."""
     ndev = mesh.size()
     rank = mesh.get_local_rank(axis_name)
-    n = model.num_gaussians
+    made = num_gaussians is not None
+    n = num_gaussians if made else model.num_gaussians
     if n % ndev:
         raise ValueError(f"{n} splats do not split into {ndev} equal blocks: pad the model")
     per = n // ndev
-    rows = slice(rank * per, (rank + 1) * per)
-    return GaussianModel.create(
-        *(getattr(model, k).detach()[rows] for k in GaussianModel.LEAVES),
-        device=mesh_device(mesh, axis_name),
-    )
+    start, stop = rank * per, (rank + 1) * per
+    if made:
+        block = model(start, stop)
+        leaves = [block[k] for k in GaussianModel.LEAVES]
+        if leaves[0].shape[0] != per:
+            raise ValueError(f"rows [{start}, {stop}) came back with {leaves[0].shape[0]} rows")
+    else:
+        leaves = [getattr(model, k).detach()[start:stop] for k in GaussianModel.LEAVES]
+    return GaussianModel.create(*leaves, device=mesh_device(mesh, axis_name))
 
 
 def pad_to_multiple(n: int, m: int) -> int:

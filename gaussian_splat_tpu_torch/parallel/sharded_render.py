@@ -35,6 +35,13 @@ Each rank's work is split into the functions below — `_pack_features`,
 so that `render_bands_in_process` runs exactly the ranks' code for D bands
 in one process (a one-device check of the sharded path).
 
+What a rank did is kept for a reader outside the trainer (a benchmark, a
+log): `torch.profiler` ranges `sharded.exchange` (the records' all_gather or
+all_to_all), `sharded.exchange_bwd` (its transpose, in the backward) and
+`sharded.frame_gather` (the frame's and the stats' gathers), and the module's
+`counters` (`ShardCounters`), summed over `render_sharded` calls since their
+`reset()`.
+
 What differs from the reference, by design:
   * the band test `my ± ry` against the band's edges is the comparison that
     binning's rect makes (no subtraction of the band origin first), on both
@@ -55,6 +62,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from gaussian_splat_tpu_torch.camera import Camera
 from gaussian_splat_tpu_torch.config import RenderConfig
@@ -71,6 +79,10 @@ NFEAT_X = 13  # exchanged floats per splat:
 #   tile rects — and therefore per-band pair counts — match the single-device
 #   binning exactly; ry alone drives the band-intersection test)
 COL_X_MY, COL_X_RX, COL_X_VALID, COL_X_OP, COL_X_RY = 1, 6, 7, 11, 12
+# a band's gathered counts: BinningStats' five fields, then the records its
+# binning took in and those it kept after the band test
+BAND_COLS = len(BinningStats._fields) + 2
+COL_BAND_IN, COL_BAND_KEPT = BAND_COLS - 2, BAND_COLS - 1
 
 
 class ShardedRender(NamedTuple):
@@ -82,6 +94,62 @@ class ShardedRender(NamedTuple):
     stats: BinningStats  # each field (D,) int32: per-band num_pairs / overflow /
     #   clamped_rects / dropped_gaussians (capacity-cap or send-buffer drops) /
     #   tier_overflow
+
+
+class ShardCounters:
+    """What `render_sharded` did on this rank, summed over its calls since
+    `reset()` (and since the last call on a mesh of another size, which
+    resets them). Host integers are counted from shapes; the band counts
+    stay on the device (no synchronisation a render) until read.
+
+      renders             render_sharded calls
+      exchange_bytes      bytes this rank received in the records' exchange
+      exchange_bwd_bytes  bytes it received in the exchange's transpose
+      bands               (D, BAND_COLS) int64, every band's gathered row
+                          (BinningStats' fields, records taken in, records
+                          kept after the band test), summed over renders
+      max_kept            () int64, the largest band's kept records, summed
+                          over renders
+    """
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, ndev: Optional[int] = None) -> None:
+        self.ndev = ndev
+        self.renders = 0
+        self.exchange_bytes = 0
+        self.exchange_bwd_bytes = 0
+        self.bands: Optional[torch.Tensor] = None
+        self.max_kept: Optional[torch.Tensor] = None
+
+    def start(self, ndev: int) -> None:
+        """A render over `ndev` ranks begins."""
+        if ndev != self.ndev:
+            self.reset(ndev)
+
+    def add(self, rows: torch.Tensor) -> None:
+        """One render's gathered (D, BAND_COLS) rows."""
+        rows = rows.to(torch.int64)
+        top = rows[:, COL_BAND_KEPT].max()
+        self.renders += 1
+        self.bands = rows if self.bands is None else self.bands + rows
+        self.max_kept = top if self.max_kept is None else self.max_kept + top
+
+    def band_stats(self) -> Optional[BinningStats]:
+        """Every band's BinningStats fields, each (D,), summed over renders."""
+        if self.bands is None:
+            return None
+        return BinningStats(*self.bands[:, : len(BinningStats._fields)].unbind(1))
+
+
+counters = ShardCounters()
+
+
+def _received_bytes(t: torch.Tensor, world: int) -> int:
+    """Bytes a rank receives from the other ranks when each sends one
+    (1/world)-th of `t`."""
+    return (world - 1) * (t.numel() // world) * t.element_size()
 
 
 class BandPlan(NamedTuple):
@@ -223,11 +291,15 @@ def _render_band(
     config: RenderConfig, compact: bool,
 ):
     """Bin and rasterize band `band` from the records it received: (image
-    (band_h, W, 3), T_final, depth, BinningStats)."""
+    (band_h, W, 3), T_final, depth, BinningStats, (2,) int32 records taken in
+    and records kept after the band test)."""
     inputs, band_args = _band_inputs(feats_band, band, plan, compact)
-    return _band_raster(config, feats_band.device)(
+    image, t_final, depth, stats = _band_raster(config, feats_band.device)(
         *inputs, width, plan.band_h, config, **band_args
     )
+    taken = torch.full((1,), feats_band.shape[0], dtype=torch.int32, device=feats_band.device)
+    kept = inputs[0].valid.sum(dtype=torch.int32).reshape(1)
+    return image, t_final, depth, stats, torch.cat([taken, kept])
 
 
 class _Gather(torch.autograd.Function):
@@ -241,7 +313,10 @@ class _Gather(torch.autograd.Function):
         ctx.group, ctx.replicated = group, replicated
         world = dist.get_world_size(group)
         out = x.new_empty((world * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        with record_function("sharded.frame_gather" if replicated else "sharded.exchange"):
+            dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        if not replicated:
+            counters.exchange_bytes += _received_bytes(out, world)
         return out
 
     @staticmethod
@@ -252,7 +327,9 @@ class _Gather(torch.autograd.Function):
             rank = dist.get_rank(ctx.group)
             return grad[rank * rows : (rank + 1) * rows], None, None
         out = grad.new_empty((rows, *grad.shape[1:]))
-        dist.reduce_scatter_tensor(out, grad.contiguous(), group=ctx.group)
+        with record_function("sharded.exchange_bwd"):
+            dist.reduce_scatter_tensor(out, grad.contiguous(), group=ctx.group)
+        counters.exchange_bwd_bytes += _received_bytes(grad, world)
         return out, None, None
 
 
@@ -264,13 +341,17 @@ class _AllToAll(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = torch.empty_like(x)
-        dist.all_to_all_single(out, x.contiguous(), group=group)
+        with record_function("sharded.exchange"):
+            dist.all_to_all_single(out, x.contiguous(), group=group)
+        counters.exchange_bytes += _received_bytes(out, dist.get_world_size(group))
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = torch.empty_like(grad)
-        dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        with record_function("sharded.exchange_bwd"):
+            dist.all_to_all_single(out, grad.contiguous(), group=ctx.group)
+        counters.exchange_bwd_bytes += _received_bytes(out, dist.get_world_size(ctx.group))
         return out, None
 
 
@@ -285,7 +366,7 @@ def _frame(bands: torch.Tensor, stats_rows: torch.Tensor, height: int) -> Sharde
     frame = bands[:height]
     return ShardedRender(
         frame[..., :3], frame[..., 3], frame[..., 4],
-        BinningStats(*stats_rows.unbind(1)),
+        BinningStats(*stats_rows[:, : len(BinningStats._fields)].unbind(1)),
     )
 
 
@@ -315,18 +396,22 @@ def render_sharded(
     ndev, band = mesh.size(), mesh.get_local_rank(axis_name)
     camera = camera.to(model.device)
     plan = band_plan(config, model.num_gaussians * ndev, camera.height, ndev)
+    counters.start(ndev)
     feats = _pack_features(model, camera, config)
     feats_band, compact, send_drop = _exchange(feats, plan, config, group)
-    image, t_final, depth, stats = _render_band(
+    image, t_final, depth, stats, records = _render_band(
         feats_band, band, plan, camera.width, config, compact
     )
     bands = _Gather.apply(
         torch.cat([image, t_final[..., None], depth[..., None]], dim=-1), group, True
     )
-    row = _stats_row(stats, send_drop)
+    row = torch.cat([_stats_row(stats, send_drop), records])
     rows = row.new_empty((ndev * row.shape[0],))
-    dist.all_gather_into_tensor(rows, row, group=group)
-    return _frame(bands, rows.view(ndev, -1), camera.height)
+    with record_function("sharded.frame_gather"):
+        dist.all_gather_into_tensor(rows, row, group=group)
+    rows = rows.view(ndev, BAND_COLS)
+    counters.add(rows)
+    return _frame(bands, rows, camera.height)
 
 
 def _records_in_process(model, camera: Camera, config: RenderConfig, plan: BandPlan):
@@ -367,11 +452,11 @@ def render_bands_in_process(
     compact = config.shard_exchange == "all_gather"
     bands, rows = [], []
     for b in range(ndev):
-        image, t_final, depth, stats = _render_band(
+        image, t_final, depth, stats, records = _render_band(
             received[b], b, plan, camera.width, config, compact
         )
         bands.append(torch.cat([image, t_final[..., None], depth[..., None]], dim=-1))
-        rows.append(_stats_row(stats, drops[b]))
+        rows.append(torch.cat([_stats_row(stats, drops[b]), records]))
     return _frame(torch.cat(bands), torch.stack(rows), camera.height)
 
 
