@@ -44,7 +44,10 @@ One JSON object per line:
              the rank sort (equal, element for element), segsum also on a
              ragged full-size case; the SH kernels on random rows (K = 16
              and 9, degrees 1-3) up to 1M and 11.2M rows, beside their plain
-             versions and autograd through the plain forward. `ms` =
+             versions and autograd through the plain forward; the projection
+             kernels on random rows at 1M and 11.2M (the forward bitwise its
+             plain version, radii, valid and extents included; the backward
+             under a train step's cotangents), beside the same. `ms` =
              `kernel_ms`, one call per event pair (the host's time to issue
              it included); beside it
              `kernel_ms_back_to_back` (calls issued back to back) and, for
@@ -102,9 +105,10 @@ from gaussian_splat_tpu_torch.camera import orbit_camera  # noqa: E402
 from gaussian_splat_tpu_torch.io import ply  # noqa: E402
 from gaussian_splat_tpu_torch.io.ply import load_gaussians, save_gaussians  # noqa: E402
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
+from gaussian_splat_tpu_torch.ops import projection as proj_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops import sh as sh_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops.binning import (  # noqa: E402
-    bin_gaussians, rank_permutation_from_sort,
+    bin_gaussians, quantize_extent_up, rank_permutation_from_sort,
 )
 from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
     _effective_opacities, _project_and_shade, measure_pair_costs,
@@ -147,6 +151,15 @@ SH_CASES = (("rows1_k16_d3", 1, 16, 3), ("rows255_k9_d2", 255, 9, 2),
 # where the SH colour before its clamp lies this close to 0, rounding decides
 # whether the gradient passes: those rows are left out of the comparison
 SH_KINK = 1e-4
+# the projection kernels' cases: (name, rows), opacity-aware extents (the
+# render default) at rubble's 1152x864 camera; bench_full is the bench
+# scene's size, rubble_rows the rubble cell's
+PROJ_CASES = (("rows1000", 1_000), ("bench_full", N_SPLATS), ("rubble_rows", 11_200_000))
+# a train step's cotangents of the projection: the raster stage's and SH's
+PROJ_TRAIN_COTANGENTS = ("means2d", "conics", "depths", "dirs")
+# proj_bwd may be past the gradient tolerance of the float64 plain backward
+# on this many times the elements that the float32 plain backward is
+PROJ_SLACK = 1.05
 MULTI_GPU_TIMEOUT = 900  # seconds for every rank of the multi_gpu phase to finish
 FIT_TRACK_RTOL = 1e-3  # fit(mesh=)'s losses against the single card's, relative
 SENTINELS = ("overflow", "tier_overflow", "dropped_gaussians")  # must be 0 on every band
@@ -404,6 +417,28 @@ def grad_errors(got, want, floor=0.0):
     scale = want2.abs().amax(dim=0, keepdim=True).clamp_min(floor)
     tol = GRAD_RTOL * want2.abs() + GRAD_ATOL_REL * scale
     return float(err.max()) if err.numel() else 0.0, int((err > tol).sum())
+
+
+def grad_errors_against(got, plain, truth):
+    """A float32 gradient `got` and the plain float32 version's `plain`,
+    both against `truth`, the plain version in float64, by GRAD_RTOL and
+    GRAD_ATOL_REL: on ill-conditioned rows both stray from the exact value,
+    each by its own rounding. `n_over` counts the elements past the
+    tolerance beyond the plain version's count within its noise (PROJ_SLACK
+    times it, three standard deviations of a count, and 3), and the NaNs
+    where the plain version has none."""
+    nan = got.isnan() != plain.isnan()
+    ok = ~(plain.isnan() | truth.isnan() | got.isnan())
+    g, p, t = got[ok].double(), plain[ok].double(), truth[ok]
+    col = torch.where(ok, truth.abs(), 0.0).reshape(-1, truth.shape[-1]).amax(dim=0)
+    scale = col.expand(ok.shape)[ok] if t.numel() else t
+    tol = GRAD_RTOL * t.abs() + GRAD_ATOL_REL * scale
+    over, plain_over = int(((g - t).abs() > tol).sum()), int(((p - t).abs() > tol).sum())
+    return {"max_abs_err": float((g - t).abs().max()) if t.numel() else 0.0,
+            "plain_max_abs_err": float((p - t).abs().max()) if t.numel() else 0.0,
+            "over": over, "plain_over": plain_over,
+            "n_over": max(0, over - int(PROJ_SLACK * plain_over + 3 * plain_over ** 0.5 + 3))
+            + int(nan.sum())}
 
 
 @torch.no_grad()
@@ -711,6 +746,108 @@ def compare_sh(name, n, k, degree, reps, seed):
     return {"sh_fwd": fwd, "sh_bwd": bwd}
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+@torch.no_grad()
+def compare_projection(name, n, reps, seed):
+    """proj_fwd and proj_bwd vs their plain versions on n random rows (some
+    behind the camera, past the frustum clamp, nearly flat, opacities either
+    side of alpha_skip): {kernel name: case}. The forward must be bitwise
+    the plain forward (`n_over` counts the elements that are not; `rows_off`
+    the rows whose radii, valid or quantized extents differ); the backward
+    under a train step's cotangents of unit scale. Both run twice (bitwise
+    equal). Beside each kernel's times: its plain version's, and for the
+    backward autograd's forward and backward through the plain forward (the
+    stage the kernels replaced)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    means = 2.5 * torch.randn((n, 3), generator=gen, device=DEVICE)
+    means[: n // 10, 2] -= 8.0
+    quats = torch.randn((n, 4), generator=gen, device=DEVICE)
+    scales = torch.exp(torch.empty((n, 3), device=DEVICE).uniform_(-6.0, -1.0, generator=gen))
+    scales[: n // 7, 0] = 1e-5
+    opac = torch.rand((n,), generator=gen, device=DEVICE)
+    cam = Camera.from_lookat((0.3, 0.5, -5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 60.0,
+                             1152, 864, device=DEVICE)
+    cfg = RenderConfig()
+    settings = proj_ops._Settings(cfg.near_plane, cfg.cov2d_dilation, cfg.sigma_extent,
+                                  cfg.alpha_skip)
+    kw = dict(near_plane=cfg.near_plane, cov2d_dilation=cfg.cov2d_dilation,
+              sigma_extent=cfg.sigma_extent, opacities=opac, alpha_skip=cfg.alpha_skip)
+    widths = dict(means2d=2, conics=3, depths=0, dirs=3)
+    grads = proj_ops.ProjectionGrads(**{
+        k: torch.randn((n, widths[k]) if widths[k] else (n,), generator=gen, device=DEVICE)
+        for k in PROJ_TRAIN_COTANGENTS})
+    shape = {"case": name, "n_splats": n, "opacity_aware": True}
+
+    def fwd_kernel():
+        return proj_ops.projection_forward(means, quats, scales, opac, cam, settings)
+
+    def bwd_kernel():
+        return proj_ops.projection_backward(means, quats, scales, opac, cam, settings, grads)
+
+    def plain_fwd():
+        return (proj_ops.project_gaussians_torch(means, quats, scales, cam, **kw),
+                proj_ops.view_directions(means, cam))
+
+    leaves = [t.clone().requires_grad_() for t in (means, quats, scales, opac)]
+
+    def autograd():
+        with torch.enable_grad():
+            p = proj_ops.project_gaussians_torch(*leaves[:3], cam, **{**kw, "opacities": leaves[3]})
+            dirs = proj_ops.view_directions(leaves[0], cam)
+            outs = (p.means2d, p.conics, p.depths, dirs)
+            return torch.autograd.grad(outs, leaves[:3], tuple(g for g in grads if g is not None))
+
+    (got, dirs), (again, dirs_again) = fwd_kernel(), fwd_kernel()
+    want, want_dirs = plain_fwd()
+    pairs = list(zip((*got, dirs), (*want, want_dirs)))
+    ext_q = [quantize_extent_up(p.extents) for p in (got, want)]
+    rows_off = (got.radii != want.radii) | (got.valid != want.valid) \
+        | (ext_q[0] != ext_q[1]).any(-1)
+    fwd = {
+        **shape,
+        "n_over": sum(int((_bits(a) != _bits(b)).sum()) for a, b in pairs),
+        "max_abs_err": max(float((a.float() - b.float()).abs().max()) for a, b in pairs),
+        "rows_off": int(rows_off.sum()), "valid_rows": int(want.valid.sum()),
+        "bitwise_repeatable": all(torch.equal(_bits(a), _bits(b)) for a, b in
+                                  zip((*got, dirs), (*again, dirs_again))),
+        "kernel_ms": time_ms(fwd_kernel, reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(fwd_kernel, reps),
+        "device_ms": device_ms(fwd_kernel),
+        "plain_ms": time_ms(plain_fwd, reps),
+        **roofline.projection_forward_cost(n, True).fields(),
+    }
+    back, back_again = bwd_kernel(), bwd_kernel()
+    plain_back = proj_ops.project_backward_torch(means, quats, scales, cam, grads, **kw)
+    truth = proj_ops.project_backward_torch(
+        means.double(), quats.double(), scales.double(), cam,
+        proj_ops.ProjectionGrads(*(None if g is None else g.double() for g in grads)),
+        **{**kw, "opacities": opac.double()})
+    errs = {k: grad_errors_against(g, p, t)
+            for k, g, p, t in zip(("means", "quats", "scales"), back, plain_back, truth)}
+    bwd = {
+        **shape, "cotangents": list(PROJ_TRAIN_COTANGENTS),
+        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+        "n_over": sum(e["n_over"] for e in errs.values()),
+        **{f"grad_{k}": e for k, e in errs.items()},
+        "nan_rows_equal": all(torch.equal(g.isnan(), w.isnan())
+                              for g, w in zip(back[:3], plain_back[:3])),
+        "bitwise_repeatable": all(torch.equal(_bits(a), _bits(b))
+                                  for a, b in zip(back[:3], back_again[:3])),
+        "kernel_ms": time_ms(bwd_kernel, reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(bwd_kernel, reps),
+        "device_ms": device_ms(bwd_kernel),
+        "plain_ms": time_ms(
+            lambda: proj_ops.project_backward_torch(means, quats, scales, cam, grads, **kw), reps),
+        "autograd_ms": time_ms(autograd, reps),
+        "autograd_device_ms": device_ms(autograd),
+        **roofline.projection_backward_cost(n, True, PROJ_TRAIN_COTANGENTS).fields(),
+    }
+    return {"proj_fwd": fwd, "proj_bwd": bwd}
+
+
 def phase_kernels(model, camera, config):
     """{kernel name: [case, ...]} over the small shapes and the full frame,
     segsum's ragged case at full size, and the SH kernels' SH_CASES."""
@@ -734,6 +871,10 @@ def phase_kernels(model, camera, config):
     for i, (name, n, k, degree) in enumerate(SH_CASES):
         for kernel, case in compare_sh(name, n, k, degree, reps=10, seed=20 + i).items():
             cases[kernel].append(case)
+    cases["proj_fwd"], cases["proj_bwd"] = [], []
+    for i, (name, n) in enumerate(PROJ_CASES):
+        for kernel, case in compare_projection(name, n, reps=10, seed=40 + i).items():
+            cases[kernel].append(case)
     for kernel, kernel_cases in cases.items():
         for c in kernel_cases:
             check(c["n_over"] == 0,
@@ -754,6 +895,8 @@ def phase_kernels(model, camera, config):
                   f"{kernel}: the unused coefficients' gradient is not zero on {c['case']}")
             check(c.get("kink_rows", 0) <= c["n_splats"] // 1000 + 1,
                   f"{kernel}: {c.get('kink_rows')} rows at the clamp's kink on {c['case']}")
+            check(c.get("rows_off", 0) == 0 and c.get("nan_rows_equal", True),
+                  f"{kernel}: rows whose radii, valid, extents or NaNs differ on {c['case']}")
     return cases
 
 
@@ -871,10 +1014,12 @@ def phase_main_path(model, camera, smi):
     check(turntable_launches == ORBIT_FRAMES and launches == n_frames,
           f"expected one raster_fwd launch per frame: {launches} launches, "
           f"{n_frames} frames")
-    check(all(all_launches[k] == 0 for k in ("raster_bwd", "rank_perm", "segsum", "sh_bwd")),
+    check(all(all_launches[k] == 0
+              for k in ("raster_bwd", "rank_perm", "segsum", "sh_bwd", "proj_bwd")),
           f"serving frames launched a backward kernel: {all_launches}")
-    check(all_launches["sh_fwd"] == n_frames,
-          f"expected one sh_fwd launch per frame: {all_launches}, {n_frames} frames")
+    check(all_launches["sh_fwd"] == n_frames and all_launches["proj_fwd"] == n_frames,
+          f"expected one sh_fwd and proj_fwd launch per frame: {all_launches}, "
+          f"{n_frames} frames")
 
     # where a frame's time goes, stage by stage, at the bench pose
     cfg = viewer._render_config
@@ -1197,8 +1342,11 @@ def view_subsets(model, cams, camera):
     values = measure_splat_contributions(model, cam0, config, device=DEVICE)
     contrib_ms = (time.perf_counter() - t0) * 1e3
     contrib_launches = launches_since(before)
-    # the coefficients and directions are detached: no SH backward
-    check(contrib_launches == {**dict.fromkeys(cuda_raster.KERNELS, 1), "sh_bwd": 0},
+    # only the opacities take a gradient: no SH backward, and no projection
+    # backward (the extents, the only projected output they reach, steer
+    # binning and take no gradient)
+    check(contrib_launches == {**dict.fromkeys(cuda_raster.KERNELS, 1), "sh_bwd": 0,
+                               "proj_bwd": 0},
           f"measure_splat_contributions: expected one launch of each kernel: {contrib_launches}")
     check(bool(np.isfinite(values).all()) and values.max() > 0, "contributions not finite")
     check(all(getattr(model, k).grad is None for k in model.LEAVES),
@@ -1293,8 +1441,8 @@ def view_serve(viewer):
         server.server_close()
     launches = launches_since(before)
     check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": frames,
-                       "sh_fwd": frames},
-          f"expected one raster_fwd and sh_fwd launch per frame ({frames}) and no "
+                       "sh_fwd": frames, "proj_fwd": frames},
+          f"expected one raster_fwd, sh_fwd and proj_fwd launch per frame ({frames}) and no "
           f"backward: {launches}")
 
     full = [f for f in served[1:] if f["mode"] == "color" and not f["lod"]
@@ -1365,7 +1513,7 @@ def view_hot_reload(model, camera, config, workdir):
         launches = launches_since(before)
         # four frames and two probe frames (the first build's, the rebuild's)
         check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": 6,
-                           "sh_fwd": 6},
+                           "sh_fwd": 6, "proj_fwd": 6},
               f"hot reload: launches {launches}")
     finally:
         tile_raster.raster_forward_torch = real_plain
@@ -1850,6 +1998,11 @@ KERNEL_TABLE = {
                "none: XLA fused gaussian_splat_tpu/ops/sh.py:44"),
     "sh_bwd": ("gaussian_splat_tpu_torch/csrc/sh.cu",
                "none: XLA fused the VJP of gaussian_splat_tpu/ops/sh.py:44"),
+    # no pallas_call: XLA fused project_gaussians and view_directions
+    "proj_fwd": ("gaussian_splat_tpu_torch/csrc/projection.cu",
+                 "none: XLA fused gaussian_splat_tpu/ops/projection.py:136 and :271"),
+    "proj_bwd": ("gaussian_splat_tpu_torch/csrc/projection.cu",
+                 "none: XLA fused the VJP of gaussian_splat_tpu/ops/projection.py:136 and :271"),
 }
 
 
@@ -1888,7 +2041,7 @@ def kernel_line(cases, launches, smi):
             "band_bound_ms": band and band["bound_ms"],
             "tolerance": (
                 {"atol": ATOL, "rtol": RTOL} if name in ("raster_fwd", "sh_fwd")
-                else {"exact": True} if name == "rank_perm"
+                else {"exact": True} if name in ("rank_perm", "proj_fwd")
                 else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL,
                       "kink_rows_left_out_below": SH_KINK} if name == "sh_bwd"
                 else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
@@ -1900,8 +2053,9 @@ def kernel_line(cases, launches, smi):
           "a kernel reads faster than its bound: the bound's count is wrong")
     # serving frames launches no backward kernel; the viewer's only backward
     # (measure_splat_contributions) takes no SH gradient
-    wanted = {"main_path": ("raster_fwd", "sh_fwd"),
-              "view_path": tuple(k for k in cuda_raster.KERNELS if k != "sh_bwd")}
+    wanted = {"main_path": ("raster_fwd", "sh_fwd", "proj_fwd"),
+              "view_path": tuple(k for k in cuda_raster.KERNELS
+                                 if k not in ("sh_bwd", "proj_bwd"))}
     for path, counts in launches.items():
         want = wanted.get(path, cuda_raster.KERNELS)
         check(all(counts[k] > 0 for k in want),

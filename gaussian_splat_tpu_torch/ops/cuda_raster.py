@@ -31,7 +31,9 @@ A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
 unsupported shape: nothing falls back. `launch_counts[name]` goes up by one
 exactly where that kernel is launched; it also counts the SH colour's two
-kernels, `sh_fwd` and `sh_bwd` (csrc/sh.cu, wrapped in ops/sh.py).
+kernels, `sh_fwd` and `sh_bwd` (csrc/sh.cu, wrapped in ops/sh.py), and the
+projection's, `proj_fwd` and `proj_bwd` (csrc/projection.cu, wrapped in
+ops/projection.py).
 
 `rasterize` is the differentiable raster stage: one `torch.autograd.Function`
 spanning the (fused) pair gather and the compositing, as the reference's
@@ -61,9 +63,11 @@ from gaussian_splat_tpu_torch.ops import tile_raster
 from gaussian_splat_tpu_torch.ops.binning import BinningResult
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 
-# every kernel whose launches are counted here: the raster stage's four and
-# the SH colour's two (their wrappers are in ops/sh.py)
-KERNELS = ("raster_fwd", "raster_bwd", "rank_perm", "segsum", "sh_fwd", "sh_bwd")
+# every kernel whose launches are counted here: the raster stage's four, the
+# SH colour's two (their wrappers are in ops/sh.py) and the projection's two
+# (ops/projection.py)
+KERNELS = ("raster_fwd", "raster_bwd", "rank_perm", "segsum", "sh_fwd", "sh_bwd",
+           "proj_fwd", "proj_bwd")
 MAX_THREADS_PER_BLOCK = 1024
 ROW_COLS = tile_raster.TABLE_COLS  # gradient rows are laid out like table rows
 
@@ -78,6 +82,8 @@ _ARGTYPES = {
     "segsum": [_P] * 4 + [_I, _I, _P],
     "sh_fwd": [_P] * 3 + [_I] * 3 + [_P],
     "sh_bwd": [_P] * 5 + [_I] * 3 + [_P],
+    "proj_fwd": [_P] * 19 + [_I] * 4 + [_F] * 4 + [_P],
+    "proj_bwd": [_P] * 21 + [_I] * 4 + [_F] * 4 + [_P],
 }
 
 

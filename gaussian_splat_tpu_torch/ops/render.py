@@ -33,7 +33,7 @@ from gaussian_splat_tpu_torch.ops.binning import (
     BinningStats, quantize_extent_up, tile_rects,
 )
 from gaussian_splat_tpu_torch.ops.projection import (
-    ProjectedGaussians, project_gaussians, view_directions,
+    ProjectedGaussians, project_with_directions,
 )
 
 
@@ -52,7 +52,7 @@ def _project_and_shade(model: GaussianModel, camera: Camera, config: RenderConfi
             f"camera is on {camera.device}, model on {model.device}: "
             f"move one with .to(device)"
         )
-    proj = project_gaussians(
+    proj, dirs = project_with_directions(
         model.means,
         model.quats,
         model.scales,
@@ -66,7 +66,6 @@ def _project_and_shade(model: GaussianModel, camera: Camera, config: RenderConfi
         alpha_skip=config.alpha_skip if config.opacity_aware_extent else None,
     )
     degree = min(config.sh_degree, model.sh_degree)
-    dirs = view_directions(model.means, camera)
     colors = sh_ops.eval_sh(degree, model.sh, dirs)
     return proj, colors
 

@@ -150,6 +150,51 @@ def sh_backward_cost(n_splats: int, coefficients: int, degree: int) -> KernelCos
     )
 
 
+# The projection's bytes a row. proj_fwd reads means (3 floats), quats (4),
+# scales (3) and, where the extent is opacity-aware, the opacity (1); it
+# writes means2d (2), conics (3), depth (1), radius (int32), valid (1 byte),
+# cov2d (3), compensation (1), extents (2) and the direction (3). proj_bwd
+# reads the inputs again and the cotangents it is given, and writes the
+# gradients of means, quats, scales and (opacity-aware, with an extents
+# cotangent) the opacity.
+PROJ_INPUT_BYTES = (3 + 4 + 3) * F32
+PROJ_OUTPUT_BYTES = (2 + 3 + 1 + 3 + 1 + 2 + 3) * F32 + I32 + 1
+PROJ_COTANGENT_FLOATS = dict(means2d=2, conics=3, depths=1, cov2d=3, compensation=1,
+                             extents=2, dirs=3)
+PROJ_CAMERA_BYTES = (16 + 4 + 3) * F32  # viewmat, fx fy cx cy, the centre
+# Operations a row, each multiply, add, divide, square root, logarithm,
+# comparison, min and max counted as one: the forward's ~280 (view transform
+# 18, rotation 51, Σview 96, Jacobian and clamp 23, 2D covariance 27, conic,
+# compensation and eigenvalue 24, extents and radius 16, centre and culls
+# 14, direction 13); the backward recomputes them and walks back ~420 more.
+FLOPS_PER_ROW_PROJ_FWD = 280
+FLOPS_PER_ROW_PROJ_BWD = 280 + 420
+
+
+def projection_forward_cost(n_splats: int, opacity_aware: bool) -> KernelCost:
+    """proj_fwd: the inputs read once, every output written once."""
+    return KernelCost(
+        bytes=n_splats * (PROJ_INPUT_BYTES + (F32 if opacity_aware else 0) + PROJ_OUTPUT_BYTES)
+        + PROJ_CAMERA_BYTES,
+        flops=n_splats * FLOPS_PER_ROW_PROJ_FWD,
+    )
+
+
+def projection_backward_cost(n_splats: int, opacity_aware: bool, cotangents) -> KernelCost:
+    """proj_bwd under the cotangents named in `cotangents` (the others take
+    no gradient): the inputs and those cotangents read once, the gradients
+    that they reach written once."""
+    reads = PROJ_INPUT_BYTES + (F32 if opacity_aware else 0) \
+        + F32 * sum(PROJ_COTANGENT_FLOATS[k] for k in cotangents)
+    geometry = any(k in cotangents for k in ("conics", "cov2d", "compensation", "extents"))
+    writes = 3 * F32 + (7 * F32 if geometry else 0) \
+        + (F32 if opacity_aware and "extents" in cotangents else 0)
+    return KernelCost(
+        bytes=n_splats * (reads + writes) + PROJ_CAMERA_BYTES,
+        flops=n_splats * FLOPS_PER_ROW_PROJ_BWD,
+    )
+
+
 def nvlink_ms(bytes_received: int) -> float:
     """The least time one card takes to receive `bytes_received` from the
     other cards of its host: the bound of a collective's exchange."""
