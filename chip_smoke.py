@@ -108,7 +108,7 @@ from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
 from gaussian_splat_tpu_torch.ops import projection as proj_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops import sh as sh_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops.binning import (  # noqa: E402
-    bin_gaussians, quantize_extent_up, rank_permutation_from_sort,
+    bin_gaussians, quantize_extent_up, rank_permutation_by_mask,
 )
 from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
     _effective_opacities, _project_and_shade, measure_pair_costs,
@@ -555,14 +555,14 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
     }
 
     # -- rank_perm (the backward's rank order, from binning's own sort) ------
-    sort_args = (binning.pair_src, pair_gauss, rank_starts, config)
     kept = binning.kept
+    sort_args = (binning.pair_src, rank_starts, kept, config)
 
     def rank_perm():
-        return cuda_raster.rank_permutation_from_sort(*sort_args, kept)
+        return cuda_raster.rank_permutation_from_sort(*sort_args)
 
     perm, perm_again = rank_perm(), rank_perm()
-    plain_perm = rank_permutation_from_sort(*sort_args)
+    plain_perm = rank_permutation_by_mask(*sort_args)
     keyed = torch.where(torch.arange(num_rows, device=DEVICE) < pairs, pair_gauss, n)
     rank = {
         **shape, "rows": num_rows,
@@ -575,7 +575,7 @@ def compare_kernels(name, model, camera, config, reps, tamper=None, band=None):
         "kernel_ms": time_ms(rank_perm, reps),
         "kernel_ms_back_to_back": time_back_to_back_ms(rank_perm, reps),
         "device_ms": device_ms(rank_perm),
-        "plain_ms": time_ms(lambda: rank_permutation_from_sort(*sort_args), reps),
+        "plain_ms": time_ms(lambda: rank_permutation_by_mask(*sort_args), reps),
         # the yardstick: ONE stable sort of the keyed ranks
         "library_ms": time_ms(lambda: torch.sort(keyed, stable=True), reps),
         "rank_sort_ms": time_ms(
@@ -1087,7 +1087,7 @@ def step_split(model, camera, target, cfg, tc):
 
     def build_perm():
         return cuda_raster.rank_permutation_from_sort(
-            binning.pair_src, binning.pair_gauss, binning.rank_starts, cfg, binning.kept)
+            binning.pair_src, binning.rank_starts, binning.kept, cfg)
 
     perm = build_perm()
     check(torch.equal(perm, tile_raster.rank_permutation(

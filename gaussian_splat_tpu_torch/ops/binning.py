@@ -24,8 +24,8 @@ two-key fallback), the rect columns are gathered directly rather than packed
 into a code word, the pair list is exactly `pair_budget` long (the CUDA
 kernel needs no alignment padding), and the sort's indices are kept
 (`pair_src`), with the cells the keys were made from (`kept`): from them
-`rank_permutation_from_sort` gives the backward the pairs' rank order, which
-the reference sorts again.
+`rank_permutation_by_mask`, the rank_perm kernel's rule, gives the backward
+the pairs' rank order, which the reference sorts again.
 
 The sharded path (parallel/sharded_render.py) bins one horizontal band of a
 taller frame: `total_tiles_y` is the global tile-row count and `tile_row0`
@@ -77,7 +77,7 @@ class BinningResult(NamedTuple):
     tier_overflow: torch.Tensor  # () int32 big-tier-ELIGIBLE gaussians denied a
     #   big slot because the big-tier capacity overflowed
     pair_src: torch.Tensor  # (B,) int32 emission slot each pair was sorted from
-    #   (see `rank_permutation_from_sort`)
+    #   (see `rank_permutation_by_mask`)
     dropped_gaussians: torch.Tensor  # () int32 valid gaussians beyond the
     #   `max_active` cap (sharded path: in-band splats a device had to drop
     #   because its band capacity overflowed; 0 when max_active is None)
@@ -514,45 +514,6 @@ def bin_gaussians(
     )
 
 
-@torch.no_grad()
-def rank_permutation_from_sort(
-    pair_src: torch.Tensor,  # (B,) int32 BinningResult.pair_src
-    pair_gauss: torch.Tensor,  # (B,) int32
-    rank_starts: torch.Tensor,  # (M+1,) int32, M = BinningResult.num_active
-    config: RenderConfig,
-) -> torch.Tensor:
-    """(B,) int32, element for element what `tile_raster.rank_permutation`
-    sorts out of the pair list — position i of the rank-sorted order holds
-    pair perm[i] — rebuilt from `bin_gaussians`' own sort with no second one:
-    the plain version of the rank_perm kernel
-    (`cuda_raster.rank_permutation_from_sort`, csrc/rank_perm.cu).
-
-    A row of the emission slots (`emission_rows`) emits its rect's cells in
-    row-major order, so its tile ids rise with the slot, and the tile-major
-    pair list holds a splat's pairs in the order of their slots. Pair j of rank r therefore sits at rank_starts[r] + (kept
-    cells of its row before its own): one scatter of ones over the slots, a
-    cumsum along each row, gathers over the pairs. Padding rows, past
-    rank_starts[M], keep their own places, as the stable sort leaves them.
-    The layout is `emission_rows(M)`, M read from rank_starts."""
-    n = rank_starts.shape[0] - 1
-    b = pair_src.shape[0]
-    dev = pair_src.device
-    emission = emission_rows(n, config)
-    small, slots = emission.small * emission.k_small, emission.slots
-    position = torch.arange(b, dtype=torch.int32, device=dev)
-    real = position < rank_starts[n]
-    # kept cells: 1 at each real pair's slot (the padding's go to slot `slots`),
-    # then counted along each row
-    kept = torch.zeros(slots + 1, dtype=torch.int32, device=dev)
-    one = torch.ones((), dtype=torch.int32, device=dev)
-    kept.index_put_((torch.where(real, pair_src, slots),), one)
-    kept[:small].view(n, emission.k_small).cumsum_(1)
-    kept[small:slots].view(emission.big, emission.k_big).cumsum_(1)
-    place = rank_starts.index_select(0, pair_gauss).add_(kept.index_select(0, pair_src)).sub_(1)
-    perm = torch.empty_like(position)
-    return perm.index_put_((torch.where(real, place, position),), position)
-
-
 def slot_divmod_magic(d: int):
     """(m, s) with x // d == (x * m) >> s for every 0 <= x < 2**31, d >= 1:
     s = 31 + ceil(log2 d), m = ceil(2**s / d) < 2**32 (Granlund and
@@ -577,9 +538,17 @@ def rank_permutation_by_mask(
     kept: KeptCells,  # BinningResult.kept
     config: RenderConfig,
 ) -> torch.Tensor:
-    """(B,) int32, `rank_permutation_from_sort` by the rank_perm kernel's own
-    rule (csrc/rank_perm.cu), step for step: the plain mirror that the CPU
-    tests hold against the plain version; nothing on the card's path uses it.
+    """(B,) int32, element for element what `tile_raster.rank_permutation`
+    sorts out of the pair list — position i of the rank-sorted order holds
+    pair perm[i] — rebuilt from `bin_gaussians`' own sort with no second one,
+    by the rank_perm kernel's rule (csrc/rank_perm.cu) step for step: the
+    plain version that `cuda_raster.rank_permutation_from_sort` runs on CPU
+    tensors. The layout is `emission_rows(M)`, M read from rank_starts.
+
+    A row of the emission slots emits its rect's cells in row-major order,
+    so its tile ids rise with the slot, and the tile-major pair list holds a
+    splat's pairs in the order of their slots: pair j of rank r sits at
+    rank_starts[r] + (kept cells of its row before its own).
 
     `pack`: each emission row's kept cells become ceil(k / 32) 32-bit words
     (`EmissionRows.mask_words`; word i holds cells 32i..32i+31, cell c as bit

@@ -8,7 +8,8 @@ here and a plain PyTorch version of the same arguments in ops/tile_raster.py
   kernel      wrapper                     plain version          replaces (TPU)
   raster_fwd  raster_forward              raster_forward_torch   _fwd_kernel
   raster_bwd  raster_backward             raster_backward_torch  _bwd_kernel
-  rank_perm   rank_permutation_from_sort  (binning's, same name) the lax.sort in
+  rank_perm   rank_permutation_from_sort  rank_permutation_by_mask
+                                                                 the lax.sort in
                                                                  _gather_pairs_t_bwd
   segsum      segment_sum                 segment_sum_torch      _segsum_kernel
 
@@ -25,7 +26,8 @@ plain mirror is `tile_raster.segsum_runs`). rank_perm packs the kept cells
 binning decided (`BinningResult.kept`) into a bitmask of ceil(k / 32) words
 an emission row, each with its place (8 MB at 1M splats, held in L2), then
 adds each pair into perm at its word's place plus the popcount of the bits
-before its slot (the plain mirror is `binning.rank_permutation_by_mask`).
+before its slot (its plain version, step for step, is
+`binning.rank_permutation_by_mask`).
 
 A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
@@ -44,7 +46,7 @@ binning's own sort where the reference sorts the pairs again with
 `tile_raster.rank_permutation`) → segsum → the gradient of the rank-ordered
 table. Autograd's own transpose of `table[order]` takes that back to splat
 order. On CPU tensors the same Function runs the plain versions, so the CPU
-tests exercise the explicit backward formulas and the same permutation.
+tests exercise the explicit backward formulas and rank_perm's own rule.
 """
 
 from __future__ import annotations
@@ -220,8 +222,6 @@ def _launch_backward(
 
 def _launch_rank_perm(pair_src, rank_starts, config, kept) -> torch.Tensor:
     num_rows, n = pair_src.shape[0], rank_starts.shape[0] - 1
-    if kept is None:
-        raise ValueError("rank_perm reads binning's kept cells: pass BinningResult.kept")
     slots = binning_ops.emission_rows(n, config)
     _check("pair_src", pair_src, torch.int32, (num_rows,))
     _check("rank_starts", rank_starts, torch.int32, (n + 1,), pair_src)
@@ -337,21 +337,18 @@ def raster_backward(
 
 def rank_permutation_from_sort(
     pair_src: torch.Tensor,  # (B,) i32 BinningResult.pair_src
-    pair_gauss: torch.Tensor,  # (B,) i32
     rank_starts: torch.Tensor,  # (M+1,) i32, over the M active ranks
+    kept: binning_ops.KeptCells,  # BinningResult.kept
     config: RenderConfig,
-    kept: Optional[binning_ops.KeptCells] = None,  # BinningResult.kept
 ) -> torch.Tensor:
     """The rank-order kernel: (B,) i32, the stable sort of the pair list by
     depth rank (`tile_raster.rank_permutation`), read from binning's own sort
-    with no second one.
+    and the kept cells it decided, with no second sort.
 
-    CUDA tensors go to the kernel, which reads the kept cells binning
-    decided (`kept`, required there; it does not read `pair_gauss`), or
-    raise; CPU tensors to the plain version,
-    `binning.rank_permutation_from_sort`, which needs no `kept`."""
+    CUDA tensors go to the kernel (or raise); CPU tensors to its plain
+    version, `binning.rank_permutation_by_mask`."""
     if not pair_src.is_cuda:
-        return binning_ops.rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
+        return binning_ops.rank_permutation_by_mask(pair_src, rank_starts, kept, config)
     return _launch_rank_perm(pair_src, rank_starts, config, kept)
 
 
@@ -401,7 +398,7 @@ class _Raster(torch.autograd.Function):
             d_rgbd.contiguous(), d_t_final.contiguous(), width, height, config,
             walked=walked, tile_row0=tile_row0,
         )
-        perm = rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config, ctx.kept)
+        perm = rank_permutation_from_sort(pair_src, rank_starts, ctx.kept, config)
         d_table = segment_sum(rows, perm, rank_starts, table.shape[0])
         return d_table, *(None,) * 10
 

@@ -465,7 +465,7 @@ def rank_permutation(
     rank_starts[n] real pairs — are keyed to n and sort to the end; within a
     rank the pairs keep their tile order, so the order is fixed. The
     yardstick of the rank_perm kernel and of its plain version
-    (`binning.rank_permutation_from_sort`), which give the same permutation
+    (`binning.rank_permutation_by_mask`), which give the same permutation
     without sorting the pairs again: the backward takes theirs."""
     b = pair_gauss.shape[0]
     real = torch.arange(b, device=pair_gauss.device) < rank_starts[n]

@@ -1,10 +1,10 @@
 """The backward's reduction at the bench shape on one GPU: the rank_perm
 kernel against its plain version and the rank sort, both kernels against
-another checkout's and against edited copies of their sources, and the
-host's time to issue each wrapper's launch.
+another checkout's, segsum also against edited copies of its source, and
+the host's time to issue each wrapper's launch.
 
     python3 scripts/torch_segsum_sweep.py [--other ROOT] [--source FILE ...]
-        [--rank-source FILE ...] [--out FILE]
+        [--out FILE]
 
 Builds the bench scene of chip_smoke.py (1M splats, 1920x1080), its binning
 and the backward kernel's gradient rows under seeded unit-scale cotangents,
@@ -12,17 +12,17 @@ as chip_smoke.py's `kernels` phase does, and chip_smoke's ragged full-size
 segments. Then:
 
   * rank_perm (`cuda_raster.rank_permutation_from_sort`), its plain version
-    (`binning.rank_permutation_from_sort`), the rank sort
+    (`binning.rank_permutation_by_mask`), the rank sort
     (`tile_raster.rank_permutation`) and one stable `torch.sort`, checked
     equal where they compute the same permutation;
-  * rank_perm as the package builds it, each --rank-source FILE (a copy of
-    csrc/rank_perm.cu) and --other ROOT's csrc/rank_perm.cu (either C
-    interface: the package's, which reads binning's kept cells, or the
-    slot-scratch design's, which reads pair_gauss and takes one int of
-    scratch a slot), in turns as segsum's below, each equal to the rank
-    sort and bitwise over two calls, with its device time also by kernel
-    and with the L2 flushed before each call (`cold_by_kernel`: the
-    backward finds its inputs cold, after raster_bwd's 290 MB);
+  * rank_perm as the package builds it and --other ROOT's
+    csrc/rank_perm.cu (either C interface: the package's, which reads
+    binning's kept cells, or the slot-scratch design's, which reads
+    pair_gauss and takes one int of scratch a slot), in turns: other,
+    package, package, other, each equal to the rank sort and bitwise over
+    two calls, with its device time also by kernel and with the L2 flushed
+    before each call (`cold_by_kernel`: the backward finds its inputs cold,
+    after raster_bwd's 290 MB);
   * segsum as the package builds it, each --source FILE (a copy of
     csrc/segsum.cu with other settings) and --other ROOT's csrc/segsum.cu
     (both with the package's C interface), in turns: other, package,
@@ -59,7 +59,7 @@ import chip_smoke  # noqa: E402  (exits with code 2 when there is no GPU)
 from gaussian_splat_tpu_torch import RenderConfig, _build, calibrate_render_config  # noqa: E402
 from gaussian_splat_tpu_torch.ops import binning as binning_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
-from gaussian_splat_tpu_torch.ops.binning import rank_permutation_from_sort  # noqa: E402
+from gaussian_splat_tpu_torch.ops.binning import rank_permutation_by_mask  # noqa: E402
 from gaussian_splat_tpu_torch.utils import roofline  # noqa: E402
 
 REPS = 20
@@ -127,10 +127,10 @@ def device_ms_by_kernel(fn, calls=5):
     return dict(sorted(by.items(), key=lambda kv: -kv[1]))
 
 
-def rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bound):
-    """rank_perm of the package, of each --rank-source and of --other, in
-    turns: other, package, sources, package, other."""
-    pair_src, pair_gauss, rank_starts, config = sort_args
+def rank_perm_turns(lines, smi, opts, workdir, sort_args, pair_gauss, sorted_perm, bound):
+    """rank_perm of the package and of --other, in turns: other, package,
+    package, other."""
+    pair_src, rank_starts, kept, config = sort_args
     n, num_rows = rank_starts.shape[0] - 1, pair_src.shape[0]
     emission = binning_ops.emission_rows(n, config)
     # enough scratch for either design: one int a slot or the records
@@ -140,7 +140,7 @@ def rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bou
     def built(src):
         slot_scratch = "kept_small" not in src.read_text()  # the slot-scratch design
         argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn, report = build(src, workdir, "rank_perm", argtypes if slot_scratch else None)
+        fn, _ = build(src, workdir, "rank_perm", argtypes if slot_scratch else None)
         inputs = ((pair_gauss, rank_starts) if slot_scratch
                   else (kept.small, kept.big, kept.big_ranks, rank_starts))
 
@@ -152,18 +152,13 @@ def rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bou
             if err:
                 raise RuntimeError(f"rank_perm launch failed: CUDA error {err}")
             return buf[scratch:]
-        return go, report
+        return go
 
-    package = ("package", lambda: cuda_raster.rank_permutation_from_sort(*sort_args, kept))
-    turns = [package]
-    for src in opts.rank_source:
-        go, report = built(pathlib.Path(src).resolve())
-        emit(lines, what="rank_perm_build", design=src, ptxas=report)
-        turns.append((src, go))
-    turns.append(package)
+    package = ("package", lambda: cuda_raster.rank_permutation_from_sort(*sort_args))
+    turns = [package, package]
     if opts.other:
         other_src = pathlib.Path(opts.other) / "gaussian_splat_tpu_torch" / "csrc" / "rank_perm.cu"
-        other = ("other", built(other_src.resolve())[0])
+        other = ("other", built(other_src.resolve()))
         turns = [other, *turns, other]
     for name, go in turns:
         got, again = go(), go()
@@ -231,8 +226,6 @@ def main():
     parser.add_argument("--other", help="root of another checkout whose segsum to time")
     parser.add_argument("--source", nargs="*", default=[],
                         help="edited copies of csrc/segsum.cu to time beside it")
-    parser.add_argument("--rank-source", nargs="*", default=[],
-                        help="edited copies of csrc/rank_perm.cu to time beside it")
     parser.add_argument("--out", help="also write every line, as one JSON list, here")
     opts = parser.parse_args()
     lines = []
@@ -242,11 +235,11 @@ def main():
     rank_starts, pair_gauss = binning.rank_starts, binning.pair_gauss
 
     # -- the permutation ---------------------------------------------------
-    sort_args = (binning.pair_src, pair_gauss, rank_starts, config)
     kept = binning.kept
+    sort_args = (binning.pair_src, rank_starts, kept, config)
 
     def rank_perm():
-        return cuda_raster.rank_permutation_from_sort(*sort_args, kept)
+        return cuda_raster.rank_permutation_from_sort(*sort_args)
 
     perm = rank_perm()
     sorted_perm = tile_raster.rank_permutation(pair_gauss, rank_starts, n)
@@ -256,9 +249,9 @@ def main():
     emit(lines, what="rank_perm", gpu=smi, n_splats=n, pairs=pairs, rows=rows.shape[0],
          equals_rank_sort=bool(torch.equal(perm, sorted_perm)),
          plain_equals_rank_sort=bool(torch.equal(
-             rank_permutation_from_sort(*sort_args), sorted_perm)),
+             rank_permutation_by_mask(*sort_args), sorted_perm)),
          bound_ms=bound, kernel=timings(rank_perm), host_us=host_us(rank_perm),
-         plain=timings(lambda: rank_permutation_from_sort(*sort_args)),
+         plain=timings(lambda: rank_permutation_by_mask(*sort_args)),
          kernel_by_kernel=device_ms_by_kernel(rank_perm),
          rank_sort=timings(lambda: tile_raster.rank_permutation(pair_gauss, rank_starts, n)),
          torch_sort=timings(lambda: torch.sort(keyed, stable=True)))
@@ -285,7 +278,7 @@ def main():
         return go
 
     with tempfile.TemporaryDirectory() as workdir:
-        rank_perm_turns(lines, smi, opts, workdir, sort_args, kept, sorted_perm, bound)
+        rank_perm_turns(lines, smi, opts, workdir, sort_args, pair_gauss, sorted_perm, bound)
         # (name, built launch function or None for the package's wrapper)
         package = ("package", None)
         turns = [package]

@@ -133,13 +133,11 @@ def test_band_binning_equals_jax(case):
     assert int(t_valid.sum()) == int(tb.num_pairs) - int(tb.overflow)
     # the last of 4 bands over 6 rows is padding: it holds no pair
     assert (int(tb.num_pairs) == 0) == (case == "4bands-b3-padded")
-    # the slot layout is emission_rows(m): the rank order read from binning's
-    # sort is the rank sort's, element for element, and so is the rank_perm
-    # kernel's rule (its plain mirror) on the band's kept cells
-    perm = cuda_raster.rank_permutation_from_sort(tb.pair_src, tb.pair_gauss, tb.rank_starts, tcfg)
+    # the slot layout is emission_rows(m): the rank order the rank_perm
+    # kernel's rule (its plain version) reads from binning's sort and the
+    # band's kept cells is the rank sort's, element for element
+    perm = cuda_raster.rank_permutation_from_sort(tb.pair_src, tb.rank_starts, tb.kept, tcfg)
     assert torch.equal(perm, tile_raster.rank_permutation(tb.pair_gauss, tb.rank_starts, m))
-    assert torch.equal(
-        binning.rank_permutation_by_mask(tb.pair_src, tb.rank_starts, tb.kept, tcfg), perm)
     assert binning.emission_rows(m, tcfg).small == m
 
 

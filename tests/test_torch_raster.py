@@ -238,7 +238,7 @@ def test_cuda_backward_is_not_routed_to_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(tile_raster, "raster_backward_torch", plain)
     monkeypatch.setattr(tile_raster, "segment_sum_torch", plain)
-    monkeypatch.setattr(binning, "rank_permutation_from_sort", plain)
+    monkeypatch.setattr(binning, "rank_permutation_by_mask", plain)
     monkeypatch.setattr(cuda_raster, "_launch_backward", launcher("raster_bwd"))
     monkeypatch.setattr(cuda_raster, "_launch_rank_perm", launcher("rank_perm"))
     monkeypatch.setattr(cuda_raster, "_launch_segsum", launcher("segsum"))

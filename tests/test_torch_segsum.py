@@ -1,6 +1,7 @@
 """The backward's per-splat reduction on the CPU: the rank permutation that
-`binning.rank_permutation_from_sort` (the plain version of the rank_perm
-kernel) reads from binning's own sort, the segment sum on ragged segments,
+the rank_perm kernel's rule (its plain version `binning.rank_permutation_by_mask`,
+through the wrapper on CPU tensors) reads from binning's own sort and kept
+cells, the segment sum on ragged segments,
 the segsum kernel's owner rule through its plain mirror
 (`tile_raster.segsum_runs`), and the explicit backward through both against `jax.grad` of the JAX
 `jnp_tile` backend (atol 5e-6 / rtol 3e-3, the reference suite's gradient tolerance,
@@ -40,12 +41,10 @@ def test_permutation_from_binning_equals_the_rank_sort(case):
     b, cfg = _binning(case)
     n = b.rank_starts.shape[0] - 1
     want = tile_raster.rank_permutation(b.pair_gauss, b.rank_starts, n)
-    got = binning.rank_permutation_from_sort(b.pair_src, b.pair_gauss, b.rank_starts, cfg)
+    # the rank_perm kernel's rule on binning's kept cells, through its plain version
+    got = cuda_raster.rank_permutation_from_sort(b.pair_src, b.rank_starts, b.kept, cfg)
     assert b.pair_src.dtype == got.dtype == want.dtype == torch.int32
     assert torch.equal(got, want)
-    # the rank_perm kernel's rule on binning's kept cells, through its plain mirror
-    by_mask = binning.rank_permutation_by_mask(b.pair_src, b.rank_starts, b.kept, cfg)
-    assert torch.equal(by_mask, want)
     real = int(b.rank_starts[-1])
     # the padding tail keeps its places
     assert torch.equal(got[real:], torch.arange(real, got.shape[0], dtype=torch.int32))
@@ -66,10 +65,11 @@ def test_permutation_from_sort_on_synthetic_emission(n, k_small, k_big, capacity
     """Any emission that keeps binning's layout — N rows of k_small slots, then
     big_capacity(N) rows of k_big, each row's kept cells on rising tiles, the
     big ranks' small rows and the spare big rows empty — sorted by
-    (tile, rank) as binning sorts it: the permutation rebuilt from the sort's
-    indices equals the stable rank sort, and so does the rank_perm kernel's
-    bitmask rule (its plain mirror `binning.rank_permutation_by_mask`) on
-    rows of one word and of several, empty rows, padding and no real pair."""
+    (tile, rank) as binning sorts it: the permutation the rank_perm kernel's
+    bitmask rule (its plain version `binning.rank_permutation_by_mask`)
+    rebuilds from the sort's indices and the kept cells equals the stable
+    rank sort, on rows of one word and of several, empty rows, padding and
+    no real pair."""
     rng = np.random.default_rng(seed)
     cfg = RenderConfig(small_tiles_per_gaussian=k_small, max_tiles_per_gaussian=k_big,
                        big_tier_capacity=capacity)
@@ -95,15 +95,14 @@ def test_permutation_from_sort_on_synthetic_emission(n, k_small, k_big, capacity
     counts = torch.bincount(pair_gauss[:real].long(), minlength=n)
     rank_starts = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(counts, 0)])
 
-    args = (src[:budget].int(), pair_gauss.int(), rank_starts.int())
-    got = binning.rank_permutation_from_sort(*args, cfg)
-    assert torch.equal(got, tile_raster.rank_permutation(args[1], args[2], n))
-    assert torch.equal(cuda_raster.rank_permutation_from_sort(*args, cfg), got)
     small, big_cells = (torch.tensor(np.array(rows, bool).reshape(-1, k))
                         for rows, k in zip(kept_rows, (k_small, k_big)))
     kept = binning.KeptCells(small, big_cells, torch.tensor(big_ranks, dtype=torch.int32))
-    by_mask = binning.rank_permutation_by_mask(args[0], args[2], kept, cfg)
-    assert by_mask.dtype == torch.int32 and torch.equal(by_mask, got)
+    got = cuda_raster.rank_permutation_from_sort(src[:budget].int(), rank_starts.int(), kept, cfg)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, tile_raster.rank_permutation(pair_gauss.int(), rank_starts.int(), n))
+    # the padding tail keeps its places
+    assert torch.equal(got[real:], torch.arange(real, budget, dtype=torch.int32))
 
 
 def test_slot_divmod_magic():
@@ -215,19 +214,24 @@ def test_explicit_backward_takes_the_permutation_from_binning(kind, seed, width,
     order from binning (once per backward, equal to the rank sort) and its
     gradients match `jax.grad` of jnp_tile."""
     real_sort = tile_raster.rank_permutation
-    built = []
+    real_backward = cuda_raster.raster_backward
+    pair_lists, built = [], []
 
     def no_sort(*a, **k):
         raise AssertionError("the backward sorted the pairs again")
 
-    def from_sort(pair_src, pair_gauss, rank_starts, config, kept):
-        perm = binning.rank_permutation_from_sort(pair_src, pair_gauss, rank_starts, config)
-        by_mask = binning.rank_permutation_by_mask(pair_src, rank_starts, kept, config)
-        built.append(torch.equal(perm, real_sort(pair_gauss, rank_starts, rank_starts.shape[0] - 1))
-                     and torch.equal(by_mask, perm))
+    def raster_backward(table, pair_gauss, *a, **k):  # keeps the pair list for the check
+        pair_lists.append(pair_gauss)
+        return real_backward(table, pair_gauss, *a, **k)
+
+    def from_sort(pair_src, rank_starts, kept, config):
+        perm = binning.rank_permutation_by_mask(pair_src, rank_starts, kept, config)
+        built.append(torch.equal(
+            perm, real_sort(pair_lists[-1], rank_starts, rank_starts.shape[0] - 1)))
         return perm
 
     monkeypatch.setattr(tile_raster, "rank_permutation", no_sort)
+    monkeypatch.setattr(cuda_raster, "raster_backward", raster_backward)
     monkeypatch.setattr(cuda_raster, "rank_permutation_from_sort", from_sort)
     got = _torch_grads(True, kind, seed, width, height)
     assert built == [True]
