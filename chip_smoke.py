@@ -54,6 +54,13 @@ One JSON object per line:
              every kernel, the profiler's `device_ms` (and the bound's share
              of both)
              Band cases (tile_row0 > 0) at small shapes and at full size.
+             binning's chain (csrc/binning.cu, one entry) on the small
+             scenes, the bench frame, its band 2 of 4, a random scene of
+             rubble's 11.2M rows at 1152x864, and scenes with a tail of
+             large splats at the caps calibration gives (the frame's tiles:
+             1944 at 1152x864, 1085 at 979x546; MAX_K_BIG past 8192 tiles):
+             every output field bit for bit the plain version's on the
+             card, beside its time and each kernel's device time
   cli        `cli render`, `cli train`, `cli view` (served over HTTP, then
              terminated) and `cli validate` as subprocesses
   multi_gpu  with two cards or more: one process a card over NCCL,
@@ -107,8 +114,9 @@ from gaussian_splat_tpu_torch.io.ply import load_gaussians, save_gaussians  # no
 from gaussian_splat_tpu_torch.ops import cuda_raster, tile_raster  # noqa: E402
 from gaussian_splat_tpu_torch.ops import projection as proj_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops import sh as sh_ops  # noqa: E402
+from gaussian_splat_tpu_torch.ops import binning as binning_ops  # noqa: E402
 from gaussian_splat_tpu_torch.ops.binning import (  # noqa: E402
-    bin_gaussians, quantize_extent_up, rank_permutation_by_mask,
+    bin_gaussians, bin_gaussians_torch, quantize_extent_up, rank_permutation_by_mask,
 )
 from gaussian_splat_tpu_torch.ops.render import (  # noqa: E402
     _effective_opacities, _project_and_shade, measure_pair_costs,
@@ -160,6 +168,19 @@ PROJ_TRAIN_COTANGENTS = ("means2d", "conics", "depths", "dirs")
 # proj_bwd may be past the gradient tolerance of the float64 plain backward
 # on this many times the elements that the float32 plain backward is
 PROJ_SLACK = 1.05
+# binning's cases at rubble's size: its rows, frame and the train mix's K
+# (splatbench/configs/rubble.json, traffic/train.json), which calibration
+# raises to the frame's 1944 tiles
+RUBBLE_ROWS, RUBBLE_W, RUBBLE_H, RUBBLE_K = 11_200_000, 1152, 864, 256
+# binning's cases at the caps calibration gives the main paths (the frame's
+# tiles, at most MAX_K_BIG): (name, rows, width, height, big_headroom), a
+# random scene whose first TAIL_ROWS splats span up to the whole frame; at
+# 3840x2160 (16,200 tiles) the cap is MAX_K_BIG and the largest rects shrink
+BIG_K_CASES = (("rubble_k_frame", RUBBLE_ROWS, RUBBLE_W, RUBBLE_H, 1.2),
+               ("truck_k_frame", 1_657_258, 979, 546, 1.2),
+               ("k_max_big", 250_000, 3840, 2160, 1.2))
+TAIL_ROWS = 4096
+TAIL_SCALES = (0.005, 0.5)  # the tail's scales, log-uniform
 MULTI_GPU_TIMEOUT = 900  # seconds for every rank of the multi_gpu phase to finish
 FIT_TRACK_RTOL = 1e-3  # fit(mesh=)'s losses against the single card's, relative
 SENTINELS = ("overflow", "tier_overflow", "dropped_gaussians")  # must be 0 on every band
@@ -359,19 +380,28 @@ def raster_inputs(model, camera, config):
 
 
 @torch.no_grad()
-def band_raster_inputs(model, camera, config, ndev, band, exchange="all_gather"):
+def band_inputs(model, camera, config, ndev, band, exchange="all_gather"):
     """Band `band` of `ndev` through the sharded path's own functions, in
     this process: the model's blocks packed and exchanged, the band's
-    records made the tiled render's inputs (`sharded_render._band_inputs`),
-    binned and tabled. Returns (binning, raster args, tile_row0, band_h)."""
+    records made the tiled render's inputs (`sharded_render._band_inputs`).
+    Returns ((proj, colors, opacities), band keyword arguments, config,
+    band_h)."""
     cfg = dataclasses.replace(config, shard_exchange=exchange)
     plan = sharded.band_plan(cfg, model.num_gaussians, camera.height, ndev)
     received = sharded._records_in_process(model, camera, cfg, plan)[0][band]
     inputs, band_args = sharded._band_inputs(received, band, plan, exchange == "all_gather")
+    return inputs, band_args, cfg, plan.band_h
+
+
+@torch.no_grad()
+def band_raster_inputs(model, camera, config, ndev, band, exchange="all_gather"):
+    """Band `band` of `ndev` (`band_inputs`), binned and tabled. Returns
+    (binning, raster args, tile_row0, band_h)."""
+    inputs, band_args, cfg, band_h = band_inputs(model, camera, config, ndev, band, exchange)
     binning, table = tile_raster.bin_and_table(
-        *inputs, camera.width, plan.band_h, cfg, **band_args)
+        *inputs, camera.width, band_h, cfg, **band_args)
     args = (table, binning.pair_gauss, binning.tile_offsets, binning.tile_counts)
-    return binning, args, band_args["tile_row0"], plan.band_h
+    return binning, args, band_args["tile_row0"], band_h
 
 
 @torch.no_grad()
@@ -848,9 +878,152 @@ def compare_projection(name, n, reps, seed):
     return {"proj_fwd": fwd, "proj_bwd": bwd}
 
 
+def kernel_device_ms(fn, names, calls=5):
+    """Milliseconds per call of the device time of each kernel in `names`
+    that fn() launches (the profiler's, by kernel name), and of everything
+    else fn() puts on the device. fn is called once before."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = dict.fromkeys(names, 0.0)
+    other = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        name = next((k for k in names if e.name.startswith(k)), None)
+        if name is None:
+            other += us
+        else:
+            by_name[name] += us
+    return {k: v / 1e3 / calls for k, v in by_name.items()}, other / 1e3 / calls
+
+
+@torch.no_grad()
+def compare_binning(name, proj, opac, width, height, config, reps, **band):
+    """binning's kernels (bin_gaussians on CUDA tensors: the depth argsort,
+    then the chain) against the plain version on the same card: every field
+    bit for bit, two runs bitwise equal; times beside the chain's bound."""
+    def kernel():
+        return bin_gaussians(proj, width, height, config, opacities=opac, **band)
+
+    def plain():
+        return bin_gaussians_torch(proj, width, height, config, opacities=opac, **band)
+
+    def fields(b):
+        return {**{f: getattr(b, f) for f in b._fields if f != "kept"},
+                **{f"kept.{k}": v for k, v in b.kept._asdict().items()}}
+
+    got, again, want = (fields(f()) for f in (kernel, kernel, plain))
+    torch.cuda.synchronize()
+    differing = [k for k in want if not (got[k].shape == want[k].shape
+                                         and torch.equal(got[k], want[k]))]
+    errs = [float((got[k].long() - want[k].long()).abs().max()) for k in differing
+            if got[k].shape == want[k].shape and got[k].numel()]
+    m, n = got["rank_starts"].numel() - 1, proj.means2d.shape[0]
+    emission = binning_ops.emission_rows(m, config)
+    chain_ms, other_ms = kernel_device_ms(kernel, binning_ops.KERNELS)
+    return {
+        "case": name, "n_splats": n, "table_rows": m, "width": width, "height": height,
+        "tile_row0": band.get("tile_row0", 0), "tiles": got["tile_counts"].numel(),
+        "pairs": int(got["num_pairs"]) - int(got["overflow"]),
+        **{k: int(got[k]) for k in ("num_pairs", "overflow", "clamped_rects",
+                                    "tier_overflow", "dropped_gaussians")},
+        "slots": emission.slots, "budget": got["pair_gauss"].numel(),
+        # integers: exact, or wrong
+        "fields_differing": differing, "n_over": len(differing),
+        "max_abs_err": max(errs, default=0.0),
+        "bitwise_repeatable": all(torch.equal(got[k], again[k]) for k in got),
+        "kernel_ms": time_ms(kernel, reps),
+        "kernel_ms_back_to_back": time_back_to_back_ms(kernel, reps, calls=5),
+        "device_ms": device_ms(kernel, calls=5),
+        # the four kernels' device time, and the rest (the depth key and
+        # argsort, the fills)
+        "chain_device_ms": chain_ms, "argsort_and_fills_device_ms": other_ms,
+        "plain_ms": time_ms(plain, max(2, reps // 2)),
+        "plain_device_ms": device_ms(plain, calls=2),
+        **roofline.binning_cost(
+            n, m, got["tile_counts"].numel(), got["pair_gauss"].numel(), emission.k_small,
+            emission.k_big, emission.big, sigma_test=opac is not None,
+            extents=proj.extents is not None).fields(),
+    }
+
+
+def big_k_case(name, rows, width, height, big_headroom, seed):
+    """A binning case at the cap calibration gives: `rows` random splats,
+    the first TAIL_ROWS with log-uniform TAIL_SCALES, at rubble's camera."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = GaussianModel.random(gen, rows, sh_degree=0, extent=1.0,
+                                 scale_range=(0.0004, 0.004), device=DEVICE)
+    lo, hi = (float(np.log(x)) for x in TAIL_SCALES)
+    with torch.no_grad():
+        model.log_scales[:TAIL_ROWS] = torch.empty(
+            (TAIL_ROWS, 3), device=DEVICE).uniform_(lo, hi, generator=gen)
+    cam = Camera.from_lookat((0.0, 1.0, -1.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 55.0,
+                             width, height, device=DEVICE)
+    cfg = calibrate_render_config(model, cam, RenderConfig(max_tiles_per_gaussian=RUBBLE_K),
+                                  big_headroom=big_headroom)
+    frame = cfg.num_tiles(width, height)
+    check(cfg.max_tiles_per_gaussian == min(frame, binning_ops.MAX_K_BIG),
+          f"{name}: calibration gave K {cfg.max_tiles_per_gaussian} for {frame} tiles")
+    with torch.no_grad():
+        proj, _ = _project_and_shade(model, cam, cfg)
+        opac = _effective_opacities(model, proj, cfg)
+        uncapped = dataclasses.replace(cfg, max_tiles_per_gaussian=frame)
+        _, _, w, h, _ = binning_ops.tile_rects(proj.means2d, proj.radii, proj.valid, width,
+                                               height, uncapped, extents=proj.extents)
+    case = compare_binning(name, proj, opac, width, height, cfg, reps=5)
+    case.update(k_big=cfg.max_tiles_per_gaussian, largest_rect_tiles=int((w * h).max()))
+    check(case["largest_rect_tiles"] > RUBBLE_K and case["tier_overflow"] == 0,
+          f"{name}: no rect past {RUBBLE_K} tiles, or the tier overflowed: {case}")
+    check((case["clamped_rects"] > 0) == (frame > binning_ops.MAX_K_BIG),
+          f"{name}: clamped_rects {case['clamped_rects']} with K {case['k_big']}")
+    return case
+
+
+def binning_cases(model, camera, config):
+    """binning's cases: the small scenes, the bench frame (its band 2 of 4
+    as the sharded path bins it), a random scene of rubble's rows at its
+    frame under the cap calibration gives the train mix, and BIG_K_CASES."""
+    cases = []
+    for name, m, cam, cfg, _ in small_scenes():
+        with torch.no_grad():
+            proj, _ = _project_and_shade(m, cam, cfg)
+            opac = _effective_opacities(m, proj, cfg)
+        cases.append(compare_binning(name, proj, opac, cam.width, cam.height, cfg, reps=5))
+    with torch.no_grad():
+        proj, _ = _project_and_shade(model, camera, config)
+        opac = _effective_opacities(model, proj, config)
+    cases.append(compare_binning("bench_full", proj, opac, WIDTH, HEIGHT, config, reps=10))
+    (proj_b, _, opac_b), band_args, cfg_b, band_h = band_inputs(
+        model, camera, config, BANDS, FULL_BAND)
+    cases.append(compare_binning(FULL_BAND_CASE, proj_b, opac_b, WIDTH, band_h, cfg_b,
+                                 reps=10, **band_args))
+    del proj, opac, proj_b, opac_b
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rubble = GaussianModel.random(gen, RUBBLE_ROWS, sh_degree=0, extent=1.0,
+                                  scale_range=(0.0004, 0.004), device=DEVICE)
+    cam = Camera.from_lookat((0.0, 1.0, -1.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 55.0,
+                             RUBBLE_W, RUBBLE_H, device=DEVICE)
+    cfg = calibrate_render_config(rubble, cam, RenderConfig(max_tiles_per_gaussian=RUBBLE_K),
+                                  big_headroom=16.0)
+    with torch.no_grad():
+        proj, _ = _project_and_shade(rubble, cam, cfg)
+        opac = _effective_opacities(rubble, proj, cfg)
+    cases.append(compare_binning("rubble_rows", proj, opac, RUBBLE_W, RUBBLE_H, cfg, reps=5))
+    del rubble, proj, opac
+    for i, case in enumerate(BIG_K_CASES):
+        cases.append(big_k_case(*case, seed=60 + i))
+    return cases
+
+
 def phase_kernels(model, camera, config):
     """{kernel name: [case, ...]} over the small shapes and the full frame,
-    segsum's ragged case at full size, and the SH kernels' SH_CASES."""
+    segsum's ragged case at full size, the SH kernels' SH_CASES, the
+    projection's PROJ_CASES, and binning's chain ("binning")."""
     scenes = small_scenes()
     runs = [
         compare_kernels(name, m, cam, cfg, reps=5, tamper=tamper)
@@ -875,6 +1048,7 @@ def phase_kernels(model, camera, config):
     for i, (name, n) in enumerate(PROJ_CASES):
         for kernel, case in compare_projection(name, n, reps=10, seed=40 + i).items():
             cases[kernel].append(case)
+    cases["binning"] = binning_cases(model, camera, config)
     for kernel, kernel_cases in cases.items():
         for c in kernel_cases:
             check(c["n_over"] == 0,
@@ -947,8 +1121,11 @@ def phase_no_fallback():
     whichever library of csrc/ it is; nothing gives way to a plain version
     or to autograd through one."""
     _, model, cam, cfg, _ = small_scenes()[0]
+    cuda_raster.reset_launch_counts()
+    render(model, cam, cfg).image.sum().backward()
+    step_launches = dict(cuda_raster.launch_counts)
     real = _build.load_library
-    raised = {}
+    raised, binning_launches = {}, {}
     for broken in _build.kernel_names():
         def load(name, broken=broken):
             if name == broken:
@@ -956,6 +1133,7 @@ def phase_no_fallback():
             return real(name)
 
         _build.load_library = load
+        cuda_raster.reset_launch_counts()
         try:
             try:
                 render(model, cam, cfg).image.sum().backward()
@@ -964,9 +1142,15 @@ def phase_no_fallback():
                 raised[broken] = True
         finally:
             _build.load_library = real
-    emit("no_fallback", raised_on_failed_build=raised)
+        binning_launches[broken] = {k: cuda_raster.launch_counts[k] for k in binning_ops.KERNELS}
+    emit("no_fallback", raised_on_failed_build=raised, step_launches=step_launches,
+         binning_launches_when_broken=binning_launches)
     check(all(raised.values()),
           f"a training step survived a failed kernel build: {raised}")
+    check(step_launches == dict.fromkeys(cuda_raster.KERNELS, 1),
+          f"a training step launched a kernel other than once: {step_launches}")
+    check(not any(binning_launches["binning"].values()),
+          f"a binning kernel launched without its library: {binning_launches}")
 
 
 def phase_main_path(model, camera, smi):
@@ -1017,8 +1201,9 @@ def phase_main_path(model, camera, smi):
     check(all(all_launches[k] == 0
               for k in ("raster_bwd", "rank_perm", "segsum", "sh_bwd", "proj_bwd")),
           f"serving frames launched a backward kernel: {all_launches}")
-    check(all_launches["sh_fwd"] == n_frames and all_launches["proj_fwd"] == n_frames,
-          f"expected one sh_fwd and proj_fwd launch per frame: {all_launches}, "
+    once = ("sh_fwd", "proj_fwd", *binning_ops.KERNELS)
+    check(all(all_launches[k] == n_frames for k in once),
+          f"expected one launch of each of {once} per frame: {all_launches}, "
           f"{n_frames} frames")
 
     # where a frame's time goes, stage by stage, at the bench pose
@@ -1441,8 +1626,9 @@ def view_serve(viewer):
         server.server_close()
     launches = launches_since(before)
     check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": frames,
-                       "sh_fwd": frames, "proj_fwd": frames},
-          f"expected one raster_fwd, sh_fwd and proj_fwd launch per frame ({frames}) and no "
+                       "sh_fwd": frames, "proj_fwd": frames,
+                       **dict.fromkeys(binning_ops.KERNELS, frames)},
+          f"expected one launch of each forward kernel per frame ({frames}) and no "
           f"backward: {launches}")
 
     full = [f for f in served[1:] if f["mode"] == "color" and not f["lod"]
@@ -1513,7 +1699,7 @@ def view_hot_reload(model, camera, config, workdir):
         launches = launches_since(before)
         # four frames and two probe frames (the first build's, the rebuild's)
         check(launches == {**dict.fromkeys(cuda_raster.KERNELS, 0), "raster_fwd": 6,
-                           "sh_fwd": 6, "proj_fwd": 6},
+                           "sh_fwd": 6, "proj_fwd": 6, **dict.fromkeys(binning_ops.KERNELS, 6)},
               f"hot reload: launches {launches}")
     finally:
         tile_raster.raster_forward_torch = real_plain
@@ -2003,21 +2189,32 @@ KERNEL_TABLE = {
                  "none: XLA fused gaussian_splat_tpu/ops/projection.py:136 and :271"),
     "proj_bwd": ("gaussian_splat_tpu_torch/csrc/projection.cu",
                  "none: XLA fused the VJP of gaussian_splat_tpu/ops/projection.py:136 and :271"),
+    # no pallas_call: XLA sorted padded (tile, rank) keys with lax.sort; one
+    # entry for the chain of four kernels
+    "binning": ("gaussian_splat_tpu_torch/csrc/binning.cu",
+                "none: XLA's lax.sort of padded keys, gaussian_splat_tpu/ops/binning.py:633"),
 }
+# an entry of the kernels line that covers a chain of kernels: its launches
+# are each kernel's, equal on every path
+CHAINS = {"binning": binning_ops.KERNELS}
 
 
 def kernel_line(cases, launches, smi):
     """The kernels line: each kernel with its full-size cases and its
     launches on every path."""
     kernels = []
-    for name in cuda_raster.KERNELS:
+    for name, (source, replaces) in KERNEL_TABLE.items():
         full = next(c for c in cases[name] if c["case"] == "bench_full")
         band = next((c for c in cases[name] if c["case"] == FULL_BAND_CASE), None)
-        source, replaces = KERNEL_TABLE[name]
+        chain = CHAINS.get(name, (name,))
+        for counts in launches.values():
+            check(len({counts[k] for k in chain}) == 1,
+                  f"{name}: its kernels' launches differ: {counts}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(path[name] for path in launches.values()),
-            **{f"launches_{path}": counts[name] for path, counts in launches.items()},
+            "kernels": chain,
+            "launches": sum(path[chain[0]] for path in launches.values()),
+            **{f"launches_{path}": counts[chain[0]] for path, counts in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
             "n_over": sum(c["n_over"] for c in cases[name]),
             # one call per event pair (the host's time to issue it included),
@@ -2041,7 +2238,7 @@ def kernel_line(cases, launches, smi):
             "band_bound_ms": band and band["bound_ms"],
             "tolerance": (
                 {"atol": ATOL, "rtol": RTOL} if name in ("raster_fwd", "sh_fwd")
-                else {"exact": True} if name in ("rank_perm", "proj_fwd")
+                else {"exact": True} if name in ("rank_perm", "proj_fwd", "binning")
                 else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL,
                       "kink_rows_left_out_below": SH_KINK} if name == "sh_bwd"
                 else {"rtol": GRAD_RTOL, "atol_rel_to_column_max": GRAD_ATOL_REL}
@@ -2053,7 +2250,7 @@ def kernel_line(cases, launches, smi):
           "a kernel reads faster than its bound: the bound's count is wrong")
     # serving frames launches no backward kernel; the viewer's only backward
     # (measure_splat_contributions) takes no SH gradient
-    wanted = {"main_path": ("raster_fwd", "sh_fwd", "proj_fwd"),
+    wanted = {"main_path": ("raster_fwd", "sh_fwd", "proj_fwd", *binning_ops.KERNELS),
               "view_path": tuple(k for k in cuda_raster.KERNELS
                                  if k not in ("sh_bwd", "proj_bwd"))}
     for path, counts in launches.items():

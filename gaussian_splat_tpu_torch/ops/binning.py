@@ -27,6 +27,14 @@ kernel needs no alignment padding), and the sort's indices are kept
 `rank_permutation_by_mask`, the rank_perm kernel's rule, gives the backward
 the pairs' rank order, which the reference sorts again.
 
+`bin_gaussians` runs the plain version, `bin_gaussians_torch`, on CPU
+tensors; on CUDA tensors it runs the kernels of csrc/binning.cu (or raises),
+which give the same outputs bit for bit with no sort but the depth argsort:
+the ranks are already in depth order and each (tile, rank) occurs once, so a
+kept cell's place in the tile-major list is its tile's offset plus the kept,
+in-budget cells of its tile with a lower rank, a counting sort on the tile
+id (see the source's notes).
+
 The sharded path (parallel/sharded_render.py) bins one horizontal band of a
 taller frame: `total_tiles_y` is the global tile-row count and `tile_row0`
 the band's first global row, so rects, K-cap shrinks, tier flags and the
@@ -39,12 +47,13 @@ and the per-splat table cover the m active ranks only.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from gaussian_splat_tpu_torch.config import RenderConfig
-from gaussian_splat_tpu_torch.ops.falloff import sigma_bound
+from gaussian_splat_tpu_torch.ops.falloff import log_alpha_skip, sigma_bound
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 
 
@@ -77,7 +86,8 @@ class BinningResult(NamedTuple):
     tier_overflow: torch.Tensor  # () int32 big-tier-ELIGIBLE gaussians denied a
     #   big slot because the big-tier capacity overflowed
     pair_src: torch.Tensor  # (B,) int32 emission slot each pair was sorted from
-    #   (see `rank_permutation_by_mask`)
+    #   (see `rank_permutation_by_mask`); 0 on padding rows, which no one
+    #   reads (rank_perm masks positions ≥ rank_starts[M])
     dropped_gaussians: torch.Tensor  # () int32 valid gaussians beyond the
     #   `max_active` cap (sharded path: in-band splats a device had to drop
     #   because its band capacity overflowed; 0 when max_active is None)
@@ -348,7 +358,31 @@ def bin_gaussians(
     tile_row0: int = 0,
     total_tiles_y: Optional[int] = None,
 ) -> BinningResult:
-    """Full binning pass; integer outputs, no gradient.
+    """Full binning pass; integer outputs, no gradient. CUDA tensors go to
+    the kernels of csrc/binning.cu (or raise), CPU tensors to the plain
+    version, `bin_gaussians_torch`, whose docstring has the arguments."""
+    if tile_row0 and total_tiles_y is None:
+        raise ValueError("tile_row0 places a band in a frame of total_tiles_y rows")
+    if proj.means2d.is_cuda:
+        return _bin_gaussians_cuda(proj, width, height, config, opacities, max_active,
+                                   tile_row0, total_tiles_y)
+    return bin_gaussians_torch(proj, width, height, config, opacities, max_active,
+                               tile_row0, total_tiles_y)
+
+
+@torch.no_grad()
+def bin_gaussians_torch(
+    proj: ProjectedGaussians,
+    width: int,
+    height: int,
+    config: RenderConfig,
+    opacities: Optional[torch.Tensor] = None,
+    max_active: Optional[int] = None,
+    tile_row0: int = 0,
+    total_tiles_y: Optional[int] = None,
+) -> BinningResult:
+    """The plain binning pass (the kernels' plain version); integer outputs,
+    no gradient.
 
     `opacities` ((N,) original order) enables the EXACT per-cell σ-bound tile
     test — a (gaussian, tile) pair whose support ellipse {σ ≤ bound} does not
@@ -508,9 +542,131 @@ def bin_gaussians(
         clamped_rects=clamped,
         rank_starts=rank_starts,
         tier_overflow=tier_ovf,
-        pair_src=_i32(src[:budget]),
+        pair_src=torch.where(pair_tile < num_tiles, _i32(src[:budget]), 0),
         dropped_gaussians=dropped,
         kept=kept,
+    )
+
+
+# the kernels of csrc/binning.cu, one launch of each a call of
+# `bin_gaussians` on CUDA tensors (counted in cuda_raster.launch_counts)
+KERNELS = ("bin_rects", "bin_count", "bin_offsets", "bin_scatter")
+MAX_TILES_ACROSS = 1 << 15  # a rect's tile columns and rows are 15-bit fields
+MAX_K_SMALL = 32  # a small row's kept cells are one 32-bit word
+MAX_K_BIG = 8192  # bin_rects holds a histogram of the areas ≤ K in shared memory
+
+
+def _scratch_bytes(n: int, m: int, tiles: int, k_big: int, m_big: int) -> int:
+    from gaussian_splat_tpu_torch import _build
+
+    fn = _build.load_library("binning").binning_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+    return fn(n, m, tiles, k_big, m_big)
+
+
+def _rows_arg(name: str, x: torch.Tensor, like: torch.Tensor, dtype: torch.dtype, shape):
+    """Checks an input the kernels read row by row (a view with a row stride
+    is taken as it is) and returns its row stride in elements."""
+    if x.device != like.device:
+        raise ValueError(f"{name} is on {x.device}, expected {like.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if x.shape != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+    if x.dim() == 2 and x.stride(1) != 1:
+        raise ValueError(f"{name}: expected unit stride along its last dimension")
+    return x.stride(0)
+
+
+def _pieces(dtype: torch.dtype, device, sizes):
+    """1-D tensors of the given sizes cut from one allocation, each starting
+    16-byte aligned."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    padded = [-(-size // per) * per for size in sizes]
+    buf = torch.empty((sum(padded),), dtype=dtype, device=device)
+    return [piece[:size] for piece, size in zip(buf.split(padded), sizes)]
+
+
+def _bin_gaussians_cuda(proj, width, height, config, opacities, max_active, tile_row0,
+                        total_tiles_y) -> BinningResult:
+    """`bin_gaussians` through csrc/binning.cu: the depth argsort, then one
+    launch of the chain. Raises on what the kernels do not take."""
+    from gaussian_splat_tpu_torch.ops import cuda_raster
+
+    means2d = proj.means2d
+    n = means2d.shape[0] if means2d.dim() == 2 else -1
+    strides = [_rows_arg("means2d", means2d, means2d, torch.float32, (n, 2))]
+    m = n if max_active is None else min(max_active, n)
+    emission = emission_rows(m, config)
+    k_small, k_big, m_big = emission.k_small, emission.k_big, emission.big
+    tx_n, ty_n = config.tiles_x(width), config.tiles_y(height)
+    ty_global = ty_n if total_tiles_y is None else total_tiles_y
+    num_tiles = tx_n * ty_n
+    if m < 1:
+        raise ValueError(f"the binning kernels need a splat that may emit, got {m}")
+    if not 1 <= k_small <= MAX_K_SMALL or not 1 <= k_big <= MAX_K_BIG:
+        raise ValueError(f"the binning kernels take 1 ≤ small_tiles_per_gaussian ≤ "
+                         f"{MAX_K_SMALL} and 1 ≤ max_tiles_per_gaussian ≤ {MAX_K_BIG}")
+    if max(tx_n, ty_global) >= MAX_TILES_ACROSS or emission.slots >= 2**31:
+        raise ValueError(f"the binning kernels take fewer than {MAX_TILES_ACROSS} tiles "
+                         f"across and 2^31 emission slots, got {tx_n}x{ty_global} tiles and "
+                         f"{emission.slots} slots")
+    extents = proj.extents
+    if extents is not None:
+        strides.append(_rows_arg("extents", extents, means2d, torch.float32, (n, 2)))
+    else:
+        cuda_raster._check("radii", proj.radii, torch.int32, (n,), means2d, align=4)
+        strides.append(0)
+    cuda_raster._check("valid", proj.valid, torch.bool, (n,), means2d, align=1)
+    if opacities is not None:
+        strides.append(_rows_arg("conics", proj.conics, means2d, torch.float32, (n, 3)))
+        strides.append(_rows_arg("opacities", opacities, means2d, torch.float32, (n,)))
+    else:
+        strides += [0, 0]
+    budget = min(config.pair_budget(m), emission.slots)
+    launch = cuda_raster._launcher("binning")
+    dev = means2d.device
+    with cuda_raster._on(dev):
+        depth_key = torch.where(proj.valid, proj.depths, torch.inf)
+        order = torch.argsort(depth_key, stable=True)
+        # the int32 outputs in one allocation, the bool ones in another (each
+        # torch.empty costs the call microseconds of the host's time), every
+        # piece 16-byte aligned as the kernels that read them check
+        # (pair_gauss, pair_tile, pair_src) and (tile_offsets, tile_counts)
+        # as rows padded to 4 ints, as the chain lays them out. The
+        # sentinels are an allocation of their own: callers keep every
+        # render's stats, which must not hold the pair list alive.
+        b4, t4 = -(-budget // 4) * 4, -(-num_tiles // 4) * 4
+        pairs, tiles, rank_starts, big_ranks = _pieces(
+            torch.int32, dev, [3 * b4, 2 * t4, m + 1, m_big])
+        scalars = torch.empty((5,), dtype=torch.int32, device=dev)
+        pairs, tiles = pairs.view(3, b4)[:, :budget], tiles.view(2, t4)[:, :num_tiles]
+        kept_small, kept_big = _pieces(torch.bool, dev, [m * k_small, m_big * k_big])
+        scratch = torch.empty((_scratch_bytes(n, m, num_tiles, k_big, m_big),),
+                              dtype=torch.uint8, device=dev)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = launch(
+            means2d.data_ptr(), ptr(extents), proj.radii.data_ptr(), proj.valid.data_ptr(),
+            ptr(proj.conics if opacities is not None else None), ptr(opacities),
+            order.data_ptr(), pairs.data_ptr(), tiles.data_ptr(), rank_starts.data_ptr(),
+            kept_small.data_ptr(), kept_big.data_ptr(), big_ranks.data_ptr(),
+            scalars.data_ptr(), scratch.data_ptr(), n, m, tx_n, ty_n, ty_global, tile_row0,
+            config.tile_width, config.tile_height, k_small, k_big, m_big, budget, *strides,
+            config.sigma_cutoff, log_alpha_skip(config.alpha_skip), cuda_raster._stream(dev),
+        )
+    if err != 0:
+        raise RuntimeError(f"binning launch failed: CUDA error {err}")
+    for name in KERNELS:
+        cuda_raster.launch_counts[name] += 1
+    return BinningResult(
+        order=order, pair_gauss=pairs[0], pair_tile=pairs[1], tile_offsets=tiles[0],
+        tile_counts=tiles[1], num_pairs=scalars[0], overflow=scalars[1],
+        clamped_rects=scalars[2], rank_starts=rank_starts, tier_overflow=scalars[3],
+        pair_src=pairs[2], dropped_gaussians=scalars[4],
+        kept=KeptCells(kept_small.view(m, k_small), kept_big.view(m_big, k_big), big_ranks),
     )
 
 

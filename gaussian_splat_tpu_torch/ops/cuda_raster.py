@@ -33,9 +33,11 @@ A wrapper takes the plain version only for tensors that lie on the CPU. For
 CUDA tensors it launches its kernel or raises — build failure, refused launch,
 unsupported shape: nothing falls back. `launch_counts[name]` goes up by one
 exactly where that kernel is launched; it also counts the SH colour's two
-kernels, `sh_fwd` and `sh_bwd` (csrc/sh.cu, wrapped in ops/sh.py), and the
+kernels, `sh_fwd` and `sh_bwd` (csrc/sh.cu, wrapped in ops/sh.py), the
 projection's, `proj_fwd` and `proj_bwd` (csrc/projection.cu, wrapped in
-ops/projection.py).
+ops/projection.py), and binning's four, `bin_rects`, `bin_count`,
+`bin_offsets` and `bin_scatter` (csrc/binning.cu, one launch of the chain,
+wrapped in ops/binning.py).
 
 `rasterize` is the differentiable raster stage: one `torch.autograd.Function`
 spanning the (fused) pair gather and the compositing, as the reference's
@@ -66,17 +68,17 @@ from gaussian_splat_tpu_torch.ops.binning import BinningResult
 from gaussian_splat_tpu_torch.ops.projection import ProjectedGaussians
 
 # every kernel whose launches are counted here: the raster stage's four, the
-# SH colour's two (their wrappers are in ops/sh.py) and the projection's two
-# (ops/projection.py)
+# SH colour's two (their wrappers are in ops/sh.py), the projection's two
+# (ops/projection.py) and binning's four (ops/binning.py)
 KERNELS = ("raster_fwd", "raster_bwd", "rank_perm", "segsum", "sh_fwd", "sh_bwd",
-           "proj_fwd", "proj_bwd")
+           "proj_fwd", "proj_bwd", *binning_ops.KERNELS)
 MAX_THREADS_PER_BLOCK = 1024
 ROW_COLS = tile_raster.TABLE_COLS  # gradient rows are laid out like table rows
 
 # kernel launches made by this process, per kernel (see reset_launch_counts)
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = {
     "raster_fwd": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
     "raster_bwd": [_P] * 11 + [_I] * 8 + [_F, _P],
@@ -86,6 +88,7 @@ _ARGTYPES = {
     "sh_bwd": [_P] * 5 + [_I] * 3 + [_P],
     "proj_fwd": [_P] * 19 + [_I] * 4 + [_F] * 4 + [_P],
     "proj_bwd": [_P] * 21 + [_I] * 4 + [_F] * 4 + [_P],
+    "binning": [_P] * 15 + [_L] * 2 + [_I] * 9 + [_L] * 5 + [_F] * 2 + [_P],
 }
 
 

@@ -30,7 +30,7 @@ from gaussian_splat_tpu_torch.models.gaussians import GaussianModel
 from gaussian_splat_tpu_torch.ops import reference as reference_ops
 from gaussian_splat_tpu_torch.ops import sh as sh_ops
 from gaussian_splat_tpu_torch.ops.binning import (
-    BinningStats, quantize_extent_up, tile_rects,
+    MAX_K_BIG, BinningStats, quantize_extent_up, tile_rects,
 )
 from gaussian_splat_tpu_torch.ops.projection import (
     ProjectedGaussians, project_with_directions,
@@ -150,9 +150,17 @@ def calibrate_render_config(
       * the big-tier-eligible count (K-capped area > small cap), setting
         `big_tier_capacity` with `big_headroom` (so tier_overflow == 0).
 
+    It also raises the K cap (`max_tiles_per_gaussian`) to the largest
+    frame's tile count, as far as the binning kernels take (`MAX_K_BIG`):
+    no rect spans more tiles than its frame, so no rect is shrunk
+    (`clamped_rects` stays 0) however far training grows a splat. The cap
+    costs the big tier's rows K bytes each; the tier gets at least the rows
+    that the small tier's bytes would hold (N·k_small/K), room for splats
+    that training grows past the small cap.
+
     With both sentinels at 0 the calibrated config renders BIT-IDENTICAL
-    output to the default config — the budget and capacity only affect
-    truncation and padding.
+    output to the given config wherever that config shrinks no rect — the
+    budget, capacity and cap only affect truncation and padding.
 
     With `mesh_ndev`, a third measurement sizes `shard_capacity_margin`: the
     largest per-band splat incidence (the band test of the sharded path)
@@ -166,8 +174,10 @@ def calibrate_render_config(
     `mesh_ndev` = the mesh's size.
 
     `cameras` is one Camera or an iterable; the max over cameras is used."""
-    if isinstance(cameras, Camera):
-        cameras = [cameras]
+    cameras = [cameras] if isinstance(cameras, Camera) else list(cameras)
+    frame_tiles = max(config.num_tiles(cam.width, cam.height) for cam in cameras)
+    k_cap = max(config.max_tiles_per_gaussian, min(frame_tiles, MAX_K_BIG))
+    config = dataclasses.replace(config, max_tiles_per_gaussian=k_cap)
     n = model.num_gaussians
     if mesh is not None:
         if mesh_ndev not in (None, mesh.size()):
@@ -200,7 +210,8 @@ def calibrate_render_config(
     max_sum_area, max_eligible, max_incidence = top[0], top[1], max(top[2:], default=0)
 
     ppg = max(max_sum_area * pair_headroom / max(n, 1), 0.5)
-    big_cap = max(-(-int(max_eligible * big_headroom) // 1024) * 1024, 64)
+    floor = n * config.small_tiles_per_gaussian // config.max_tiles_per_gaussian
+    big_cap = max(-(-int(max_eligible * big_headroom) // 1024) * 1024, floor, 64)
     updates = dict(pairs_per_gaussian=round(ppg, 3), big_tier_capacity=big_cap)
     if bands:
         tail = max(max_incidence - -(-n // mesh_ndev), 0)

@@ -199,3 +199,23 @@ def nvlink_ms(bytes_received: int) -> float:
     """The least time one card takes to receive `bytes_received` from the
     other cards of its host: the bound of a collective's exchange."""
     return bytes_received / NVLINK_BYTES_PER_S * 1e3
+
+
+def binning_cost(n_splats: int, active: int, num_tiles: int, budget: int, k_small: int,
+                 k_big: int, big_rows: int, sigma_test: bool = True,
+                 extents: bool = True) -> KernelCost:
+    """binning's chain (bin_rects, bin_count, bin_offsets, bin_scatter; the
+    depth argsort before it is not counted): reads each splat's inputs once
+    — means2d, the extents (or the radii), valid, with the σ test the conics
+    and the opacity — and its rank in `order` (int64); writes the kept cells
+    (a byte a slot of the `active` small rows and the big rows), the big
+    rows' ranks, rank_starts, each tile's offset and count, the sentinels,
+    and the budget-length pair list (pair_gauss, pair_tile, pair_src). The
+    σ test's ~40 operations a rect cell are counted as none beside the
+    bytes, as rank_perm's integer work is."""
+    per_splat = 2 * F32 + (2 * F32 if extents else I32) + 1 + (4 * F32 if sigma_test else 0) + 8
+    return KernelCost(
+        bytes=n_splats * per_splat + active * k_small + big_rows * (k_big + I32)
+        + (active + 1) * I32 + 2 * num_tiles * I32 + 5 * I32 + budget * 3 * I32,
+        flops=0,
+    )

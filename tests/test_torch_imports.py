@@ -106,8 +106,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
         _build.load_library("raster_fwd")
-    assert _build.kernel_names() == ["projection", "rank_perm", "raster_bwd", "raster_fwd", "segsum",
-                                     "sh"]
+    assert _build.kernel_names() == ["binning", "projection", "rank_perm", "raster_bwd",
+                                     "raster_fwd", "segsum", "sh"]
     for name in _build.kernel_names():
         with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
             _build.load_library(name)

@@ -86,6 +86,71 @@ def test_calibration_matches_jax_and_is_bit_identical():
     assert t_cfg2.pairs_per_gaussian >= t_cfg.pairs_per_gaussian
 
 
+@pytest.mark.parametrize("case", ["grown_splat", "bands", "past_the_kernels",
+                                  "cap_above_the_frame"])
+def test_calibration_raises_the_cap_to_the_frame(case):
+    """`calibrate_render_config` raises the K cap to the largest frame's tile
+    count, at most the binning kernels' `MAX_K_BIG`, and never lowers it; the
+    sharded calibration (`mesh_ndev`) alike. A splat grown past the given cap
+    after calibration keeps its whole rect; before it grew, the calibrated
+    config renders the given config's frame bit for bit."""
+    from gaussian_splat_tpu_torch.ops.binning import MAX_K_BIG
+
+    _, _, tm, tc = _setup(0)
+    cam = tc.resized(256, 192)
+    given = TorchConfig(max_tiles_per_gaussian={"cap_above_the_frame": 512}.get(case, 8))
+    if case == "past_the_kernels":
+        given = TorchConfig(tile_width=8, tile_height=8)
+        cam = tc.resized(1024, 1024)
+    cams = [cam, cam.resized(64, 48)]
+    cal = calibrate_render_config(tm, cams, given,
+                                  **({"mesh_ndev": 4} if case == "bands" else {}))
+    frame = given.num_tiles(cam.width, cam.height)
+    want = {"cap_above_the_frame": 512, "past_the_kernels": MAX_K_BIG}.get(case, frame)
+    assert cal.max_tiles_per_gaussian == want
+    if case == "past_the_kernels":
+        assert frame > MAX_K_BIG
+        return
+    before = render(tm, cam, given)
+    same = render(tm, cam, cal)
+    assert int(before.stats.clamped_rects) == int(same.stats.clamped_rects) == 0
+    assert torch.equal(before.image, same.image)
+    with torch.no_grad():
+        tm.log_scales[0] = np.log(0.8)
+    shrunk, whole = render(tm, cam, given), render(tm, cam, cal)
+    assert int(shrunk.stats.clamped_rects) == (case != "cap_above_the_frame")
+    assert int(whole.stats.clamped_rects) == 0
+    for k in ("overflow", "tier_overflow"):
+        assert int(getattr(whole.stats, k)) == 0, k
+
+
+def test_calibration_gives_the_tier_the_small_tiers_bytes():
+    """With no splat past the small cap, the big tier still gets the rows
+    that the small tier's bytes hold (N·k_small/K), room for splats that
+    training grows; the frame renders as under the given config."""
+    leaves = convert.random_leaves(5, 5000, sh_degree=1, extent=1.2, scale_range=(0.002, 0.004))
+    tm = convert.model_from_numpy(leaves, "cpu")
+    _, _, _, tc = _setup(0)
+    given = TorchConfig()
+    cal = calibrate_render_config(tm, tc, given)
+    _, _, w, h, _ = _tile_rects_of(tm, tc, given)
+    assert int(((w * h) > given.small_tiles_per_gaussian).sum()) == 0
+    floor = 5000 * given.small_tiles_per_gaussian // cal.max_tiles_per_gaussian
+    assert cal.big_tier_capacity == floor > 64
+    before, after = render(tm, tc, given), render(tm, tc, cal)
+    assert torch.equal(before.image, after.image)
+    assert int(after.stats.tier_overflow) == int(after.stats.overflow) == 0
+
+
+def _tile_rects_of(model, cam, config):
+    from gaussian_splat_tpu_torch.ops.binning import tile_rects
+    from gaussian_splat_tpu_torch.ops.render import _project_and_shade
+
+    proj, _ = _project_and_shade(model, cam, config)
+    return tile_rects(proj.means2d, proj.radii, proj.valid, cam.width, cam.height, config,
+                      extents=proj.extents)
+
+
 def test_screen_offset_shifts_like_jax():
     jm, jc, tm, tc = _setup(1)
     off = np.tile(np.array([[3.0, -2.0]], np.float32), (jm.num_gaussians, 1))

@@ -293,3 +293,20 @@ def test_roofline_reproduces_the_recorded_bounds():
     assert roofline.sh_forward_cost(rows, 3).attainable_ms() == 0.7221492537313433
     assert roofline.sh_backward_cost(rows, 16, 3).attainable_ms() == 1.404179104477612
     assert roofline.sh_backward_cost(rows, 16, 0).bytes == rows * (3 + 3 + 48 + 3) * 4
+
+
+def test_binning_cost_counts_each_byte_once():
+    """binning's chain at rubble's size: 41 bytes a splat read (means2d,
+    extents, valid, conics, opacity, its rank in `order`), the kept bytes,
+    the big rows' ranks, rank_starts, the tiles' offsets and counts, the
+    sentinels and 12 bytes a pair slot written; without the σ test and with
+    the radii, 21 bytes a splat."""
+    n, tiles, budget, big = 11_200_000, 36 * 54, 14_000_000, 200_000
+    cost = roofline.binning_cost(n, n, tiles, budget, 6, 256, big)
+    assert cost.bytes == (n * 41 + n * 6 + big * 260 + (n + 1) * 4 + 2 * tiles * 4 + 20
+                          + budget * 12)
+    assert cost.flops == 0 and cost.limiter() == "bytes"
+    assert 0.2 < cost.attainable_ms() < 0.4
+    plain = roofline.binning_cost(n, n, tiles, budget, 6, 256, big, sigma_test=False,
+                                  extents=False)
+    assert cost.bytes - plain.bytes == n * 20
